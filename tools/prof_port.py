@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Device-time profile of the PyTorch/CUDA port's serving path on one GPU.
+
+    python3 tools/prof_port.py [--out FILE.json]
+
+Uses the flagship model of chip_smoke.py (random weights from seed 0) and
+measures, float32 with TF32 off:
+
+1. each kernel at the serving shapes (A: T=512/256/128/64, B=8, H=256;
+   B, C: N=32 rows; D: B=8, k=4, V=40), beside its plain PyTorch version:
+   - `device_us`: device time per call, the summed durations of the
+     call's kernels, memcpys and memsets in a torch.profiler trace;
+   - `event_ms`: CUDA-event time per call of back-to-back eager calls
+     (chip_smoke.time_ms), which includes host time when the host is
+     slower than the device;
+   - `graph_ms` (plain version only): CUDA-event time per call when the
+     calls are replayed from one captured CUDA graph, i.e. without the
+     host's launch cost;
+2. one batch of 8 through the beam decoder per bucket (128/256/512 frames,
+   beam 4, 120 steps): `wall_ms` on the host clock around the decode and a
+   device sync; `busy_ms`, the union of the intervals of all device
+   activity in its trace (overlaps counted once); `busy_share` =
+   busy_ms / wall_ms; and the encoder's wall alone.
+
+Traces are written under build/e2e_asr_tpu_torch/prof/. Prints one line per
+measurement, the card's name and power limit first, and the JSON of all
+numbers last (also to --out if given).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from e2e_asr_tpu_torch.core import cells  # noqa: E402
+from e2e_asr_tpu_torch.eval import beam_eval  # noqa: E402
+from e2e_asr_tpu_torch.kernels import (beam_select, build,  # noqa: E402
+                                       dec_step, lstm_bidir)
+from e2e_asr_tpu_torch.models import seq2seq  # noqa: E402
+from e2e_asr_tpu_torch.shared import BeamConfig  # noqa: E402
+
+TRACE_DIR = ROOT / "build" / "e2e_asr_tpu_torch" / "prof"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(fn, n: int, name: str) -> list[dict]:
+    """Run fn() n times under the profiler; the trace's device events."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(events: list[dict]) -> float:
+    """Length of the union of the events' [ts, ts + dur) intervals."""
+    total, end = 0.0, -float("inf")
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def graph_ms(fn, n: int) -> float:
+    """Per-call time of n calls of fn replayed from one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def kernel_cases(params, cfg, dev) -> dict:
+    """name -> (kernel call, plain call, CUDA kernel name, calls to time)."""
+    rng = np.random.default_rng(1)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32)
+                            * scale, device=dev)
+
+    cases = {}
+    layer = params["encoder"]["layer_1"]
+    w_fw = layer["fw"]["kernel"][cfg.feat_length:]
+    w_bw = layer["bw"]["kernel"][cfg.feat_length:]
+    for T in (512, 256, 128, 64):
+        args = (rand(T, 8, w_fw.shape[1]), rand(T, 8, w_fw.shape[1]), w_fw,
+                w_bw, torch.ones(T, 8, 1, device=dev))
+        cases[f"lstm_bidir_T{T}"] = (
+            lambda a=args: lstm_bidir.lstm_seq_bidir(*a),
+            lambda a=args: lstm_bidir.lstm_seq_bidir_reference(*a),
+            "lstm_bidir_fwd_kernel", 3)
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    N, H, Henc = 32, dcfg.hidden_size_dec, 2 * cfg.encoder.hidden_size
+
+    def state(width):
+        return cells.LSTMState(rand(N, width, scale=0.5),
+                               rand(N, width, scale=0.5))
+
+    tokens = torch.tensor(rng.integers(0, dcfg.vocab_size, size=N),
+                          device=dev)
+    b_args = (dec, dec["embedding"][tokens], rand(N, Henc, scale=0.3),
+              state(dcfg.lm_hidden_size),
+              tuple(state(H) for _ in range(dcfg.num_layers_dec)))
+    cases["cells_fused"] = (lambda: dec_step.cells_fused(*b_args),
+                            lambda: dec_step.cells_fused_reference(*b_args),
+                            "cells_fused_kernel", 50)
+    c_args = (dec, dcfg, rand(N, H, scale=0.5), rand(N, Henc, scale=0.3))
+    cases["output_fused"] = (lambda: dec_step.output_fused(*c_args),
+                             lambda: dec_step.output_fused_reference(*c_args),
+                             "output_fused_kernel", 50)
+    d_args = (-torch.rand(8, 4, device=dev) * 20,
+              torch.log_softmax(rand(8, 4, dcfg.vocab_size, scale=3.0), -1),
+              torch.ones(8, 4, dtype=torch.bool, device=dev),
+              torch.zeros(8, dtype=torch.int32, device=dev))
+    cases["beam_select"] = (
+        lambda: beam_select.beam_select(*d_args),
+        lambda: beam_select.beam_select_reference(*d_args),
+        "beam_select_kernel", 50)
+    return cases
+
+
+def profile_kernels(params, cfg, dev) -> dict:
+    out = {}
+    for name, (kernel, plain, cuda_name, n) in kernel_cases(
+            params, cfg, dev).items():
+        ev_k = device_events(kernel, n, f"{name}_kernel")
+        mine = [e for e in ev_k if cuda_name in e["name"]]
+        if not mine:
+            raise RuntimeError(f"{name}: no {cuda_name} in the trace")
+        ev_p = device_events(plain, n, f"{name}_plain")
+        row = {"device_us": sum(e["dur"] for e in mine) / n,
+               "plain_device_us": sum(e["dur"] for e in ev_p) / n,
+               "event_ms": chip_smoke.time_ms(kernel, n),
+               "plain_event_ms": chip_smoke.time_ms(plain, n),
+               "plain_graph_ms": graph_ms(plain, n)}
+        print(f"{name}: " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),
+              flush=True)
+        out[name] = row
+    return out
+
+
+def profile_decode(params, cfg, dev) -> dict:
+    rng = np.random.default_rng(2)
+    decode = beam_eval.make_beam_decoder(cfg, BeamConfig(beam_size=4,
+                                                         max_steps=120))
+    out = {}
+    for bucket in (128, 256, 512):
+        batch = {"logmel": rng.normal(size=(8, bucket, cfg.feat_length))
+                 .astype(np.float32), "logmel_len": np.full(8, bucket)}
+        decode(params, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, lens, _ = decode(params, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy = busy_us(device_events(lambda: decode(params, batch), 1,
+                                     f"decode_{bucket}")) / 1e3
+        feats = torch.tensor(batch["logmel"], device=dev)
+        flens = torch.tensor(batch["logmel_len"], device=dev)
+        seq2seq.encode(params, cfg, feats, flens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq2seq.encode(params, cfg, feats, flens)
+        torch.cuda.synchronize()
+        enc = (time.perf_counter() - t0) * 1e3
+        row = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+               "encoder_wall_ms": enc, "steps": int(lens.max())}
+        print(f"decode bucket {bucket}: "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in row.items()), flush=True)
+        out[f"decode_{bucket}"] = row
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", help="also write the JSON here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("prof_port: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    build.library()
+    cfg = chip_smoke.flagship_cfg()
+    with torch.no_grad():
+        params = seq2seq.init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+        result = {"card": card, **profile_kernels(params, cfg, dev),
+                  **profile_decode(params, cfg, dev)}
+    text = json.dumps(result)
+    if args.out:
+        Path(args.out).write_text(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
