@@ -8,20 +8,36 @@ Phases; any failure exits nonzero and prints no result line:
    (nvidia-smi) and the torch / CUDA versions;
 2. build: compiles the kernels from csrc/ with nvcc and prints ptxas's
    register / shared-memory / spill lines;
-3. kernels: each of the four kernels against its plain PyTorch version on
-   the same CUDA inputs at the serving slice's shapes, with the error, the
-   stated tolerance and CUDA-event times of both;
-4. slice: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
+3. kernels: every kernel against its plain PyTorch version on the same
+   CUDA inputs, with the error, the stated tolerance, CUDA-event times of
+   both, the bound (the least time the card could take: bytes at 3.35 TB/s
+   or float32 operations at 67 TFLOP/s, whichever is larger) and, where one
+   PyTorch call computes the same function, that call's time:
+   - serving kernels A, B, C, D at the serving shapes;
+   - training kernels at the train shapes: A's training form and its
+     backward (both directions, and one direction with a carry mask) on
+     encoder layer 1 (T=384, B=128, H=256; beside cuDNN's nn.LSTM), the
+     decoder's training forward and backward (B=128, 47 steps, 48 encoder
+     frames, scheduled sampling and dropout on);
+4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
-   buckets 128/256/512); every kernel's launch count must be > 0; one batch
-   decoded on the card must equal the same batch decoded by the plain path
-   on the CPU, up to near-ties (< 1e-3) in the step where they part.
+   buckets 128/256/512); every serving kernel's launch count must be > 0;
+   one batch decoded on the card must equal the same batch decoded by the
+   plain path on the CPU, up to near-ties (< 1e-3) in the step where they
+   part;
+5. training: (a) one asr_step of the flagship at B=16 (T=384, L=48,
+   teacher forcing, dropout on with the same masks) on the card and on the
+   CPU must agree: the loss, every gradient leaf and the params after the
+   step; (b) three asr_steps at the bench's train shape B=128, T=384,
+   L=48, every loss finite and every training kernel launched; (c) the
+   step time and frames/s.
 The line before the last is a JSON object with the per-kernel numbers; the
 last line is {"ok": true, "device": {...}}. float32 throughout, TF32 off.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,18 +46,30 @@ import time
 import numpy as np
 import torch
 
+from e2e_asr_tpu_torch.config import (BeamConfig, DecoderConfig,
+                                      EncoderConfig, LMConfig, Seq2SeqConfig)
 from e2e_asr_tpu_torch.core import cells
-from e2e_asr_tpu_torch.core.checkpoint import to_device
+from e2e_asr_tpu_torch.core.checkpoint import named_from_params, to_device
+from e2e_asr_tpu_torch.core.layers import dropout_mask
+from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
 from e2e_asr_tpu_torch.eval import beam_eval
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
-from e2e_asr_tpu_torch.kernels import beam_select, build, dec_step, lstm_bidir
-from e2e_asr_tpu_torch.models import seq2seq
-from e2e_asr_tpu_torch.shared import (START_VOCAB, BeamConfig, DecoderConfig,
-                                      EncoderConfig, Seq2SeqConfig)
+from e2e_asr_tpu_torch.kernels import (beam_select, build, dec_step,
+                                       dec_train, lstm_bidir)
+from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
+from e2e_asr_tpu_torch.train import step
 
+# Tolerances against the plain version on the card: forward values of order
+# 1 take 1e-4 absolute (float32 sums in another order); gradients, whose
+# sums run over up to T*B = 49152 rows, 1e-4 relative to each output's
+# largest value; the selection is exact.
 TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
-       "beam_select": 0.0}
+       "beam_select": 0.0, "lstm_bidir_train": 1e-4, "lstm_bidir_bwd": 1e-4,
+       "lstm_bwd": 1e-4, "dec_train_fwd": 1e-4, "dec_train_bwd": 1e-4}
+RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd"}
 NEAR_TIE = 1e-3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
+TRAIN_B, TRAIN_T, TRAIN_L = 128, 384, 48  # the bench's train shape
 
 
 def fail(msg: str):
@@ -70,6 +98,19 @@ def max_err(got, want) -> tuple[float, float]:
     return abs_err, rel
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(flops: float, moved: int) -> tuple[float, str]:
+    """(least ms on the card, what bounds it): float32 operations at the
+    peak rate or bytes at the memory rate, whichever takes longer."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
 def flagship_cfg():
     return Seq2SeqConfig(
         tasks=["char"], num_layers={"char": 4}, max_output={"char": 120},
@@ -81,30 +122,77 @@ def flagship_cfg():
         feat_length=80)
 
 
-def check_kernels(params, cfg, dev) -> list[dict]:
-    """Phase 3: every kernel against its plain version at the slice's
-    shapes (A: T=512, B=8, H=256; B, C: N=32 rows; D: B=8, k=4, V=40)."""
+class Recorder:
+    """Holds each kernel to its plain version and keeps its JSON row."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __call__(self, name, source, replaces, got, want, fn, ref, n, n_ref,
+                 work, library=None):
+        if name in RELATIVE:
+            errs = [(float((g - w).abs().max()),
+                     max(float(w.abs().max()), 1e-6))
+                    for g, w in zip(got, want)]
+            abs_err = max(e for e, _ in errs)
+            rel_err = max(e / s for e, s in errs)
+            ok = rel_err <= TOL[name]
+        else:
+            abs_err, rel_err = max_err(got, want)
+            ok = abs_err <= TOL[name]
+        ms, plain_ms = time_ms(fn, n), time_ms(ref, n_ref, warmup=1)
+        bound_ms, bound_by = bound(*work)
+        library_ms = None if library is None else library()
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        kind = "relative" if name in RELATIVE else "absolute"
+        print(f"kernel {name}: max_abs_err={abs_err:.3e} "
+              f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
+              f"({kind}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib}",
+              flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version: {abs_err} "
+                 f"(relative {rel_err})")
+        self.rows.append({"name": name, "route": "cuda", "source": source,
+                          "replaces": replaces, "max_abs_err": abs_err,
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms})
+
+
+def cudnn_lstm_ms(x, lens, H, bidirectional, backward) -> float:
+    """cuDNN's nn.LSTM on the packed batch (same input width, hidden size
+    and lengths): its training forward, or its backward as the time of
+    forward + backward less the forward's. Timed only, as a yardstick."""
+    lstm = torch.nn.LSTM(x.shape[-1], H, bidirectional=bidirectional).to(
+        x.device)
+    xg = x.detach().clone().requires_grad_(True)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        xg, lens.cpu(), enforce_sorted=False)
+    fwd_ms = time_ms(lambda: lstm(packed), 5)
+    if not backward:
+        return fwd_ms
+    leaves = [xg, *lstm.parameters()]
+    g = torch.randn_like(lstm(packed)[0].data)
+
+    def fwd_bwd():   # the packing's graph is kept for the next call
+        torch.autograd.grad(lstm(packed)[0].data, leaves, g,
+                            retain_graph=True)
+
+    return time_ms(fwd_bwd, 5) - fwd_ms
+
+
+def check_kernels(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, serving kernels at the serving shapes (A: T=512, B=8,
+    H=256; B, C: N=32 rows; D: B=8, k=4, V=40)."""
     rng = np.random.default_rng(1)
     rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
         rng.normal(size=s).astype(np.float32) * scale, device=dev)
     dec = params["decoder_char"]
     dcfg = cfg.decoders["char"]
-    results = []
-
-    def record(name, route_src, replaces, got, want, fn, ref, n, n_ref):
-        abs_err, rel_err = max_err(got, want)
-        ms, plain_ms = time_ms(fn, n), time_ms(ref, n_ref)
-        print(f"kernel {name}: max_abs_err={abs_err:.3e} "
-              f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        if not abs_err <= TOL[name]:
-            fail(f"{name} disagrees with its plain version: {abs_err}")
-        results.append({"name": name, "route": "cuda", "source": route_src,
-                        "replaces": replaces, "max_abs_err": abs_err,
-                        "ms": ms, "plain_ms": plain_ms})
 
     # A: encoder layer 1 of the flagship on random log-mel features.
-    T, B = 512, 8
+    T, B, H = 512, 8, cfg.encoder.hidden_size
     layer = params["encoder"]["layer_1"]
     x = rand(T, B, cfg.feat_length)
     lens = torch.tensor(rng.integers(40, T + 1, size=B), device=dev)
@@ -116,37 +204,48 @@ def check_kernels(params, cfg, dev) -> list[dict]:
             >= T - lens[None, :]).float()[:, :, None]
     a_args = (xf, xb, layer["fw"]["kernel"][cfg.feat_length:],
               layer["bw"]["kernel"][cfg.feat_length:], mask)
+    got = lstm_bidir.lstm_seq_bidir(*a_args)
     record("lstm_bidir", "e2e_asr_tpu_torch/csrc/lstm_bidir.cu",
-           "e2e_asr_tpu/ops/lstm_pallas.py:638",
-           lstm_bidir.lstm_seq_bidir(*a_args),
+           "e2e_asr_tpu/ops/lstm_pallas.py:625", got,
            lstm_bidir.lstm_seq_bidir_reference(*a_args),
            lambda: lstm_bidir.lstm_seq_bidir(*a_args),
-           lambda: lstm_bidir.lstm_seq_bidir_reference(*a_args), 20, 2)
+           lambda: lstm_bidir.lstm_seq_bidir_reference(*a_args), 20, 2,
+           (2 * T * B * 2 * H * 4 * H, nbytes(*a_args, *got)),
+           lambda: cudnn_lstm_ms(x, lens, H, True, False))
 
     # B and C: one decode step over N = 8 rows x 4 beams.
-    N, H, Henc = 32, dcfg.hidden_size_dec, 2 * cfg.encoder.hidden_size
+    N, Hd, Henc = 32, dcfg.hidden_size_dec, 2 * cfg.encoder.hidden_size
     tokens = torch.tensor(rng.integers(0, dcfg.vocab_size, size=N),
                           device=dev)
     state = lambda w: cells.LSTMState(rand(N, w, scale=0.5),  # noqa: E731
                                       rand(N, w, scale=0.5))
     b_args = (dec, dec["embedding"][tokens], rand(N, Henc, scale=0.3),
               state(dcfg.lm_hidden_size),
-              tuple(state(H) for _ in range(dcfg.num_layers_dec)))
+              tuple(state(Hd) for _ in range(dcfg.num_layers_dec)))
     flat = lambda out: [out[0].c, out[0].h, out[2]] + [  # noqa: E731
         t for s in out[1] for t in s]
+    b_weights = [dec[k][p] for k in ("lm_cell", "input_proj", "attn_query")
+                 for p in ("kernel", "bias")] + [
+        t for c in dec["dec_cells"] for t in (c["kernel"], c["bias"])]
+    got = flat(dec_step.cells_fused(*b_args))
     record("cells_fused", "e2e_asr_tpu_torch/csrc/dec_step.cu",
-           "e2e_asr_tpu/ops/dec_step_pallas.py:162",
-           flat(dec_step.cells_fused(*b_args)),
+           "e2e_asr_tpu/ops/dec_step_pallas.py:208", got,
            flat(dec_step.cells_fused_reference(*b_args)),
            lambda: dec_step.cells_fused(*b_args),
-           lambda: dec_step.cells_fused_reference(*b_args), 200, 50)
-    c_args = (dec, dcfg, rand(N, H, scale=0.5), rand(N, Henc, scale=0.3))
+           lambda: dec_step.cells_fused_reference(*b_args), 200, 50,
+           (2 * N * sum(w.numel() for w in b_weights if w.dim() == 2),
+            nbytes(*b_weights, *b_args[1:3], *b_args[3], *got)))
+    c_args = (dec, dcfg, rand(N, Hd, scale=0.5), rand(N, Henc, scale=0.3))
+    c_weights = [dec[k][p] for k in ("attn_proj", "output_proj")
+                 for p in ("kernel", "bias")]
+    got = [dec_step.output_fused(*c_args)]
     record("output_fused", "e2e_asr_tpu_torch/csrc/dec_step.cu",
-           "e2e_asr_tpu/ops/dec_step_pallas.py:336",
-           [dec_step.output_fused(*c_args)],
+           "e2e_asr_tpu/ops/dec_step_pallas.py:351", got,
            [dec_step.output_fused_reference(*c_args)],
            lambda: dec_step.output_fused(*c_args),
-           lambda: dec_step.output_fused_reference(*c_args), 200, 50)
+           lambda: dec_step.output_fused_reference(*c_args), 200, 50,
+           (2 * N * (c_weights[0].numel() + c_weights[2].numel()),
+            nbytes(*c_weights, *c_args[2:], *got)))
 
     # D: one selection step with dead parents and finished hypotheses.
     k, V = 4, dcfg.vocab_size
@@ -160,12 +259,148 @@ def check_kernels(params, cfg, dev) -> list[dict]:
     got = beam_select.beam_select(*d_args)
     want = beam_select.beam_select_reference(*d_args)
     record("beam_select", "e2e_asr_tpu_torch/csrc/beam_select.cu",
-           "e2e_asr_tpu/ops/beam_select_pallas.py:129",
+           "e2e_asr_tpu/ops/beam_select_pallas.py:147",
            [got[key].float() for key in want],
            [want[key].float() for key in want],
            lambda: beam_select.beam_select(*d_args),
-           lambda: beam_select.beam_select_reference(*d_args), 200, 50)
-    return results
+           lambda: beam_select.beam_select_reference(*d_args), 200, 50,
+           (B * k * V * k, nbytes(*d_args, *got.values())))
+
+
+def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, training kernels at the train shapes: A's training form and
+    backward on encoder layer 1 (T=384, B=128, H=256), the decoder's
+    training forward and backward (B=128, 47 steps, 48 encoder frames)."""
+    rng = np.random.default_rng(3)
+    rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32) * scale, device=dev)
+    T, B, H, F = TRAIN_T, TRAIN_B, cfg.encoder.hidden_size, cfg.feat_length
+    layer = params["encoder"]["layer_1"]
+    x = rand(T, B, F)
+    lens = torch.tensor(rng.integers(T // 2, T + 1, size=B), device=dev)
+    lens[0] = T
+    with torch.no_grad():
+        xf = cells.lstm_precompute_inputs(layer["fw"], x, F)
+        xb = cells.lstm_precompute_inputs(layer["bw"], torch.flip(x, [0]), F)
+    mask = (torch.arange(T, device=dev)[:, None]
+            >= T - lens[None, :]).float()[:, :, None]
+    wf, wb = layer["fw"]["kernel"][F:], layer["bw"]["kernel"][F:]
+    a_args = (xf, xb, wf, wb, mask)
+    fwd = lstm_bidir.lstm_seq_bidir_train(*a_args)
+    lstm_ops = T * B * 2 * H * 4 * H        # one [H, 4H] product, one way
+    record("lstm_bidir_train", "e2e_asr_tpu_torch/csrc/lstm_bidir.cu",
+           "e2e_asr_tpu/ops/lstm_pallas.py:625", fwd,
+           lstm_bidir.lstm_seq_bidir_reference(*a_args, save_c=True),
+           lambda: lstm_bidir.lstm_seq_bidir_train(*a_args),
+           lambda: lstm_bidir.lstm_seq_bidir_reference(*a_args, save_c=True),
+           5, 1, (2 * lstm_ops, nbytes(*a_args, *fwd)),
+           lambda: cudnn_lstm_ms(x, lens, H, True, False))
+    h_fw, h_bw, c_fw, c_bw = fwd
+    g_fw, g_bw = rand(T, B, H), rand(T, B, H)
+    bw_args = (wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw, xb, g_bw, mask)
+    got = lstm_bidir.lstm_bidir_bwd(*bw_args)
+
+    def plain_bidir():
+        return (*lstm_bidir.lstm_bwd_reference(wf, h_fw, c_fw, xf, g_fw),
+                *lstm_bidir.lstm_bwd_reference(wb, h_bw, c_bw, xb, g_bw,
+                                               mask))
+
+    # Gates recompute, dh_{t-1} and dW_h: three [H, 4H] products a row-step.
+    record("lstm_bidir_bwd", "e2e_asr_tpu_torch/csrc/lstm_bidir_bwd.cu",
+           "e2e_asr_tpu/ops/lstm_pallas.py:1381", got, plain_bidir(),
+           lambda: lstm_bidir.lstm_bidir_bwd(*bw_args), plain_bidir, 5, 1,
+           (2 * 3 * lstm_ops, nbytes(*bw_args, *got)),
+           lambda: cudnn_lstm_ms(x, lens, H, True, True))
+    one_args = (wb, h_bw, c_bw, xb, g_bw, mask)
+    got = lstm_bidir.lstm_bwd(*one_args)
+    record("lstm_bwd", "e2e_asr_tpu_torch/csrc/lstm_bidir_bwd.cu",
+           "e2e_asr_tpu/ops/lstm_pallas.py:975", got,
+           lstm_bidir.lstm_bwd_reference(*one_args),
+           lambda: lstm_bidir.lstm_bwd(*one_args),
+           lambda: lstm_bidir.lstm_bwd_reference(*one_args), 5, 1,
+           (3 * lstm_ops, nbytes(*one_args, *got)),
+           lambda: cudnn_lstm_ms(x, lens, H, False, True))
+
+    # The decoder's training pass on encoder-layer-4-sized states, with
+    # scheduled sampling on every other step and dropout.
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    S, Te = TRAIN_L - 1, TRAIN_T // 8
+    enc = rand(B, Te, 2 * H, scale=0.5)
+    enc_lens = torch.tensor(rng.integers(Te // 2, Te + 1, size=B), device=dev)
+    enc_lens[0] = Te
+    ids = torch.tensor(rng.integers(3, dcfg.vocab_size, size=(S + 1, B)),
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, gumbel, lm_masks, _ = attn_decoder.train_noise(gen, dcfg, S, B, dev)
+    flags = (torch.arange(S, device=dev) % 2).float()
+    with torch.no_grad():
+        emb_in = dec["embedding"][ids]
+        tlmx = (emb_in[:S] @ dec["lm_cell"]["kernel"][:dcfg.emb_size]
+                + dec["lm_cell"]["bias"])
+        weights = [w.contiguous() for w in dec_train.weight_args(
+            dec, dcfg.emb_size)]
+        hf = enc @ dec["attn_w"]
+    amask = (torch.arange(Te, device=dev)[None, :]
+             < enc_lens[:, None]).float()
+    gum_sh = torch.cat([gumbel.new_zeros(1, B, dcfg.vocab_size),
+                        gumbel[:-1]])
+    flag_sh = torch.cat([flags.new_zeros(1), flags[:-1]])[:, None].expand(
+        S, B).contiguous()
+    leaves = [t.detach().requires_grad_(True)
+              for t in (*weights, hf, enc, tlmx)]
+    d_args = (leaves[:13], *leaves[13:15], amask, leaves[15], gum_sh,
+              flag_sh, lm_masks)
+    logits = dec_train.dec_train(*d_args)
+    kernel_tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
+    with torch.no_grad():
+        free = dec_train.dec_train_reference(*d_args)
+    plain_tokens = dec_train.sampled_tokens(free, gum_sh)
+    differ = (kernel_tokens != plain_tokens) & (flag_sh > 0)
+    for b in range(B):
+        steps = torch.nonzero(differ[:, b]).flatten()
+        if len(steps):     # later steps of this row follow the first part
+            t = int(steps[0])
+            z = free[t - 1, b] + gum_sh[t, b]
+            gap = float(z[plain_tokens[t, b]] - z[kernel_tokens[t, b]])
+            print(f"dec_train row {b}: sampled tokens part at step {t}, "
+                  f"gap {gap:.3e} (near-tie limit {NEAR_TIE})")
+            if gap >= NEAR_TIE:
+                fail(f"dec_train row {b} samples another token at step "
+                     f"{t}: gap {gap}")
+    print(f"dec_train: {int((flag_sh[:, 0] > 0).sum())} sampled steps, "
+          f"{int(differ.any(0).sum())} rows part at a near-tie", flush=True)
+
+    def plain():
+        return dec_train.dec_train_reference(*d_args, sampled=kernel_tokens)
+
+    G, D, E, A, V = (dcfg.lm_hidden_size, dcfg.hidden_size_dec, 2 * H,
+                     dcfg.attention_vec_size, dcfg.vocab_size)
+    M = dcfg.emb_size
+    products = (G * 4 * G + (G + E) * M + (M + D) * 4 * D + D * A
+                + (D + E) * D + D * V)
+    attn = Te * A * 3 + Te * E * 2
+    inputs = nbytes(*leaves, amask, gum_sh, flag_sh, lm_masks)
+    with torch.no_grad():
+        record("dec_train_fwd", "e2e_asr_tpu_torch/csrc/dec_train.cu",
+               "e2e_asr_tpu/ops/dec_train_pallas.py:337", [logits.detach()],
+               [plain()], lambda: dec_train.dec_train(*d_args), plain, 5, 2,
+               (S * B * (2 * products + attn), inputs + nbytes(logits)))
+    dlog = rand(S, B, V)
+    got = torch.autograd.grad(logits, leaves, dlog, retain_graph=True)
+    want_out = plain()
+    want = torch.autograd.grad(want_out, leaves, dlog, retain_graph=True)
+    # Data gradients, then the weight gradients: twice the forward's
+    # products, and about three times its attention work. It reads the
+    # forward's saves: per row and step 7G + M + 7D + A + Te + E + V floats.
+    saves = S * B * 4 * (7 * G + M + 7 * D + A + Te + E + V)
+    record("dec_train_bwd", "e2e_asr_tpu_torch/csrc/dec_train.cu",
+           "e2e_asr_tpu/ops/dec_train_pallas.py:656", got, want,
+           lambda: torch.autograd.grad(logits, leaves, dlog,
+                                       retain_graph=True),
+           lambda: torch.autograd.grad(want_out, leaves, dlog,
+                                       retain_graph=True), 5, 2,
+           (S * B * (4 * products + 3 * attn),
+            inputs + nbytes(dlog, *got) + saves))
 
 
 def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
@@ -266,6 +501,125 @@ def compare_cpu(params, cfg, feats) -> None:
           f"{float((sc_g - sc_c).abs().max()):.3e}", flush=True)
 
 
+TRAIN_KERNELS = {"lstm_bidir_train": ("lstm_bidir", "TRAIN_LAUNCHES"),
+                 "lstm_bidir_bwd": ("lstm_bidir", "BWD_LAUNCHES"),
+                 "lstm_bwd": ("lstm_bidir", "BWD_SINGLE_LAUNCHES"),
+                 "dec_train_fwd": ("dec_train", "FWD_LAUNCHES"),
+                 "dec_train_bwd": ("dec_train", "BWD_LAUNCHES")}
+MODULES = {"lstm_bidir": lstm_bidir, "dec_train": dec_train}
+
+
+def train_batch(rng, B: int, cfg) -> dict:
+    """B utterances of up to TRAIN_T frames with transcripts of up to
+    TRAIN_L - 1 characters (ending in <eos>), random from `rng`."""
+    T, L, V = TRAIN_T, TRAIN_L, cfg.decoders["char"].vocab_size
+    lens = rng.integers(T // 2, T + 1, size=B)
+    lens[0] = T
+    char_len = rng.integers(L // 2, L, size=B)
+    char_len[0] = L - 1
+    char = np.zeros((B, L), np.int64)
+    char[:, 0] = GO_ID
+    for i, n in enumerate(char_len):
+        char[i, 1:n] = rng.integers(3, V, size=n - 1)
+        char[i, n] = EOS_ID
+    feats = rng.normal(size=(B, T, cfg.feat_length)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0.0
+    return {"logmel": feats, "logmel_len": lens, "char": char,
+            "char_len": char_len}
+
+
+def compare_train_step(cfg, dev, lm_cfg) -> None:
+    """Phase 5a: one asr_step at B=16 on the card and on the CPU, same
+    params, batch and noise; teacher forcing (no sampled token can part)."""
+    dcfg = dataclasses.replace(cfg.decoders["char"], samp_prob=0.0)
+    cfg = dataclasses.replace(cfg, decoders={"char": dcfg})
+    B = 16
+    batch = train_batch(np.random.default_rng(5), B, cfg)
+    gen = torch.Generator().manual_seed(5)
+    params = seq2seq.init(gen, cfg, device="cpu")
+    masks, t = {}, TRAIN_T
+    for i, reduce in enumerate(encoder.layer_plan(cfg.encoder, 4)):
+        masks[i + 1] = dropout_mask(gen, (t, B, 2 * cfg.encoder.hidden_size),
+                                    cfg.encoder.out_prob, "cpu")
+        t = -(-t // cfg.encoder.skip_step) if reduce else t
+    noise = {"encoder": masks, "char": attn_decoder.train_noise(
+        gen, dcfg, TRAIN_L - 1, B, "cpu")}
+    runs = {}
+    for where in ("cpu", dev):
+        asr_step, _ = step.make_train_step(cfg, lm_cfg, device=where)
+        state = step.create_state(params, cfg, lm_cfg, device=where)
+        t0 = time.monotonic()
+        loss, _, grads = asr_step.loss_and_grads(state.params, batch, None,
+                                                 noise)
+        new_state, _ = asr_step(state, batch, None, noise)
+        runs[str(where)] = (float(loss), named_from_params(grads),
+                            named_from_params(new_state.params))
+        print(f"asr_step B={B} on {where}: loss {float(loss):.6f}, "
+              f"{time.monotonic() - t0:.2f} s", flush=True)
+    (loss_c, g_c, p_c), (loss_g, g_g, p_g) = runs["cpu"], runs[str(dev)]
+    # Tolerances: loss 1e-5 relative; gradients 1e-3 relative to each
+    # leaf's largest value (sums over 384-step recurrences in other
+    # orders); params 1e-5 (1% of one Adam step at lr 1e-3) where |g| is
+    # above 1% of its leaf's largest.
+    if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
+        fail(f"loss on the card {loss_g} vs the CPU {loss_c}")
+    worst_g = worst_p = 0.0
+    for name, w in g_c.items():
+        scale = max(float(np.abs(w).max()), 1e-12)
+        worst_g = max(worst_g, float(np.abs(g_g[name] - w).max()) / scale)
+        big = np.abs(w) > 1e-2 * scale
+        if big.any():
+            worst_p = max(worst_p, float(np.abs(p_g[name][big]
+                                                - p_c[name][big]).max()))
+    print(f"card vs CPU at B={B}: loss {loss_g:.6f} vs {loss_c:.6f}; "
+          f"gradients max error {worst_g:.3e} of each leaf's largest "
+          f"(tolerance 1e-3); params after the step max error "
+          f"{worst_p:.3e} (tolerance 1e-5)", flush=True)
+    if not (worst_g <= 1e-3 and worst_p <= 1e-5):
+        fail("the card's asr_step disagrees with the CPU's")
+
+
+def train(cfg, dev, card: str) -> dict:
+    """Phase 5: (a) card vs CPU at B=16, (b) three steps at the bench's
+    train shape, (c) their time. Returns the launches of the training
+    kernels in (a) and (b)."""
+    lm_cfg = LMConfig(vocab_size=cfg.decoders["char"].vocab_size)
+    for module, counter in TRAIN_KERNELS.values():
+        setattr(MODULES[module], counter, 0)
+    compare_train_step(cfg, dev, lm_cfg)
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    asr_step, _ = step.make_train_step(cfg, lm_cfg, device=dev)
+    state = step.create_state(params, cfg, lm_cfg, device=dev)
+    batch = train_batch(np.random.default_rng(6), TRAIN_B, cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    times, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = asr_step(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {name: getattr(MODULES[m], c)
+                for name, (m, c) in TRAIN_KERNELS.items()}
+    if not all(np.isfinite(losses)) or int(state.global_step) != 3:
+        fail(f"training losses {losses}, global_step "
+             f"{int(state.global_step)}")
+    frames = int(batch["logmel_len"].sum())
+    steady = float(np.mean(times[1:]))
+    print(f"training B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} ({card}): losses "
+          f"{losses}; step times {[round(t * 1e3, 2) for t in times]} ms; "
+          f"steady step {steady * 1e3:.2f} ms, {frames / steady:.0f} "
+          f"frames/s ({TRAIN_B * TRAIN_T / steady:.0f} padded frames/s)",
+          flush=True)
+    print(f"launches in the training run: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the training path")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -295,18 +649,20 @@ def main() -> int:
         if any(s in line for s in ("entry function", "registers", "spill")):
             print("  " + line.strip())
 
+    # 3. kernels
+    cfg = flagship_cfg()
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    print(f"flagship model: {seq2seq.param_count(params)} parameters")
+    record = Recorder()
     with torch.no_grad():
-        # 3. kernels
-        cfg = flagship_cfg()
-        params = seq2seq.init(torch.Generator().manual_seed(0), cfg,
-                              device=dev)
-        print(f"flagship model: {seq2seq.param_count(params)} parameters")
-        kernels = check_kernels(params, cfg, dev)
+        check_kernels(params, cfg, dev, record)
+    check_train_kernels(params, cfg, dev, record)
 
-        # 4. slice
-        rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
-                                              for i in range(26)]
-        rev_vocab += [f"#{i}" for i in range(40 - len(rev_vocab))]
+    # 4. serving
+    rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
+                                          for i in range(26)]
+    rev_vocab += [f"#{i}" for i in range(40 - len(rev_vocab))]
+    with torch.no_grad():
         lstm_bidir.LAUNCHES = 0
         dec_step.CELLS_LAUNCHES = dec_step.OUTPUT_LAUNCHES = 0
         beam_select.LAUNCHES = 0
@@ -323,11 +679,13 @@ def main() -> int:
         for name, n in launches.items():
             if n <= 0:
                 fail(f"kernel {name} was not launched by the serving path")
-        for entry in kernels:
-            entry["launches"] = launches[entry["name"]]
         compare_cpu(params, cfg, feats)
 
-    print(json.dumps({"kernels": kernels}))
+    # 5. training
+    launches.update(train(cfg, dev, card))
+    for row in record.rows:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": record.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

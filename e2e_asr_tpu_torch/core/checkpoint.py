@@ -1,5 +1,5 @@
 """Weights across frameworks: build the port's parameters from the named
-leaves of the JAX package.
+leaves of the JAX package, and the named leaves from the port's parameters.
 
 The JAX package names every pytree leaf by its "/"-joined path
 (e2e_asr_tpu/core/checkpoint.py `flatten_named`, e.g.
@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch.shared import Seq2SeqConfig
+from e2e_asr_tpu_torch.config import Seq2SeqConfig
+from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.models import seq2seq
 
 SEP = "/"
@@ -59,7 +60,9 @@ def params_from_named(named: dict[str, np.ndarray], cfg: Seq2SeqConfig,
     """Build the port's parameters for `cfg` from JAX-named leaves.
 
     Strict: a leaf the model does not have, a leaf it lacks, or a shape
-    that differs raises ValueError. Leaves are copied as float32."""
+    that differs raises ValueError. Leaves are copied as float32 to `device`
+    (default: the CUDA card; raises without one)."""
+    device = resolve(device)
     shapes = seq2seq.init(torch.Generator().manual_seed(0), cfg,
                           device="meta")
     template = flatten_named(shapes)
@@ -81,7 +84,8 @@ def params_from_named(named: dict[str, np.ndarray], cfg: Seq2SeqConfig,
 def load_npz(path: str, cfg: Seq2SeqConfig, device=None) -> dict:
     """Parameters from a named `.npz` written by the JAX package's
     `checkpoint.save`: a bare parameter tree, or a training state whose
-    parameters sit under `params/` (the other state is not read)."""
+    parameters sit under `params/` (the other state is not read). Default
+    device: the CUDA card."""
     with np.load(path) as data:
         named = {k: data[k] for k in data.files}
     head = "params" + SEP
@@ -89,3 +93,10 @@ def load_npz(path: str, cfg: Seq2SeqConfig, device=None) -> dict:
         named = {k[len(head):]: v for k, v in named.items()
                  if k.startswith(head)}
     return params_from_named(named, cfg, device)
+
+
+def named_from_params(params: dict) -> dict[str, np.ndarray]:
+    """The reverse of params_from_named: {"/"-joined name: float32 numpy
+    array}, the form the JAX package's checkpoints and parameters take."""
+    return {name: leaf.detach().cpu().numpy()
+            for name, leaf in flatten_named(params).items()}

@@ -39,3 +39,22 @@ def dense_params(gen: torch.Generator, in_dim: int, out_dim: int, *,
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     """y = x @ kernel + bias."""
     return x @ params["kernel"] + params["bias"]
+
+
+def dropout_mask(gen: torch.Generator, shape, keep_prob: float,
+                 device) -> torch.Tensor:
+    """Bool keep-mask of `shape`, True with probability keep_prob, drawn on
+    the generator's device and moved to `device`."""
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    return (u < keep_prob).to(device)
+
+
+def dropout(x: torch.Tensor, keep_prob: float, *, gen=None,
+            mask=None) -> torch.Tensor:
+    """Inverted dropout as tf.nn.dropout: kept values scaled by 1/keep_prob.
+    The keep-mask is handed in (bool, x's shape) or drawn from `gen`."""
+    if keep_prob >= 1.0:
+        return x
+    if mask is None:
+        mask = dropout_mask(gen, x.shape, keep_prob, x.device)
+    return torch.where(mask, x / keep_prob, torch.zeros_like(x))

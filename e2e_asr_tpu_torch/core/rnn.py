@@ -9,6 +9,9 @@ The bidirectional LSTM layer flips the whole sequence (padding then leads)
 and runs both directions in one launch of kernel A
 (kernels/lstm_bidir.py), whose backward direction carries its state
 through the leading padding; that equals reversing within each length.
+Gradients flow through the kernel's backward. Training dropout is applied
+to the concatenated output outside the kernel, as the reference does off
+the TPU (its rnn_layer falls back to layers.dropout there).
 `lstm_scan` and `reverse_sequence` are the plain formulation of the same
 thing, kept as the independent oracle the tests hold the layer to.
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from e2e_asr_tpu_torch.core import cells
+from e2e_asr_tpu_torch.core.layers import dropout
 from e2e_asr_tpu_torch.kernels import lstm_bidir
 
 
@@ -57,10 +61,13 @@ def lstm_scan(params: dict, x_seq: torch.Tensor, lens: torch.Tensor
 def rnn_layer(params: dict, x_seq: torch.Tensor, lens: torch.Tensor, *,
               cell: str = "lstm", bidirectional: bool = True,
               compute_dtype=None, out_dropout=None) -> torch.Tensor:
-    """One bidirectional LSTM layer at inference.
+    """One bidirectional LSTM layer.
 
     params: {"fw": cell_params, "bw": cell_params}; x_seq [T, B, F]
     time-major float32; lens [B]. Returns [T, B, 2H] (fw ; bw).
+    out_dropout: (keep_prob, mask) for training, mask a bool [T, B, 2H]
+    keep-mask (tensors that need a gradient take the training form of the
+    kernel and its backward).
     """
     if cell != "lstm":
         raise NotImplementedError("GRU layers are not ported yet "
@@ -68,13 +75,10 @@ def rnn_layer(params: dict, x_seq: torch.Tensor, lens: torch.Tensor, *,
     if not bidirectional:
         raise NotImplementedError(
             "forward-only layers need the unidirectional LSTM kernel "
-            "(ROADMAP.md Queue 2, kernels #3-#5, with the training slice)")
+            "(ROADMAP.md Queue 2, kernel #3)")
     if compute_dtype is not None:
         raise NotImplementedError("bf16 compute is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Decode features')")
-    if out_dropout is not None:
-        raise NotImplementedError("dropout is training (ROADMAP.md Queue 1, "
-                                  "slice 2)")
     T, B, in_dim = x_seq.shape
     lens = lens.to(x_seq.device)
     x_proj_fw = cells.lstm_precompute_inputs(params["fw"], x_seq, in_dim)
@@ -88,4 +92,8 @@ def rnn_layer(params: dict, x_seq: torch.Tensor, lens: torch.Tensor, *,
         valid)
     fw_out = h_fw * length_mask(lens, T)[:, :, None]
     bw_out = torch.flip(h_bw_flip * valid, [0])
-    return torch.cat([fw_out, bw_out], dim=-1)
+    out = torch.cat([fw_out, bw_out], dim=-1)
+    if out_dropout is not None:
+        keep, mask = out_dropout
+        out = dropout(out, keep, mask=mask)
+    return out

@@ -1,9 +1,12 @@
 // Kernel A: forward of both directions of one bidirectional LSTM layer.
 //
 // Replaces e2e_asr_tpu/ops/lstm_pallas.py lstm_seq_bidir (forward, no
-// dropout). Inputs are the precomputed input projections x@W_x + b of both
-// directions (the backward one of the time-flipped sequence), the recurrent
-// kernels W_h [H,4H] and the validity mask of the flipped sequence.
+// dropout) and, as e2e_lstm_bidir_fwd_train, its residual-saving training
+// form _lstm_seq_bidir_fwd, which also writes the cell state c of every
+// step for the backward (csrc/lstm_bidir_bwd.cu). Inputs are the
+// precomputed input projections x@W_x + b of both directions (the backward
+// one of the time-flipped sequence), the recurrent kernels W_h [H,4H] and
+// the validity mask of the flipped sequence.
 //
 // Layout: one block per chain (batch row b, direction d): grid (B, 2). The
 // block loops over all T steps itself (blocks run in no order on the GPU, so
@@ -24,7 +27,8 @@ __global__ void __launch_bounds__(1024) lstm_bidir_fwd_kernel(
     const float* __restrict__ xp_fw, const float* __restrict__ xp_bw,
     const float* __restrict__ w_fw, const float* __restrict__ w_bw,
     const float* __restrict__ mask_bw, float* __restrict__ h_fw,
-    float* __restrict__ h_bw, int T, int B, int H, int S) {
+    float* __restrict__ h_bw, float* __restrict__ c_fw,
+    float* __restrict__ c_bw, int T, int B, int H, int S) {
   extern __shared__ float sm[];
   float* hbuf = sm;          // [H] current h of this chain
   float* part = sm + H;      // [S][4][H] partial gate sums
@@ -38,6 +42,7 @@ __global__ void __launch_bounds__(1024) lstm_bidir_fwd_kernel(
   const float* xp = bw ? xp_bw : xp_fw;
   const float* w = bw ? w_bw : w_fw;
   float* out = bw ? h_bw : h_fw;
+  float* c_out = bw ? c_bw : c_fw;  // null: inference, c is not kept
 
   for (int i = threadIdx.x; i < H; i += blockDim.x) hbuf[i] = 0.f;
   float c = 0.f, h = 0.f;
@@ -90,10 +95,32 @@ __global__ void __launch_bounds__(1024) lstm_bidir_fwd_kernel(
       c = nc;
       h = nh;
       hbuf[u] = nh;
-      out[(static_cast<size_t>(t) * B + b) * H + u] = nh;
+      const size_t at = (static_cast<size_t>(t) * B + b) * H + u;
+      out[at] = nh;
+      if (c_out != nullptr) c_out[at] = nc;
     }
     __syncthreads();
   }
+}
+
+}  // namespace
+
+namespace {
+
+cudaError_t launch_fwd(const float* xp_fw, const float* xp_bw,
+                       const float* w_fw, const float* w_bw,
+                       const float* mask_bw, float* h_fw, float* h_bw,
+                       float* c_fw, float* c_bw, int T, int B, int H,
+                       cudaStream_t stream) {
+  if (H < 1 || H > 1024 || B < 1 || B > 65535 || T < 1)
+    return cudaErrorInvalidValue;
+  const int Hp = (H + 31) / 32 * 32;
+  const int S = max(1, min(4, 1024 / Hp));  // reduction slices per unit
+  const size_t smem = static_cast<size_t>(H) * (1 + 4 * S) * sizeof(float);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  lstm_bidir_fwd_kernel<<<dim3(B, 2), Hp * S, smem, stream>>>(
+      xp_fw, xp_bw, w_fw, w_bw, mask_bw, h_fw, h_bw, c_fw, c_bw, T, B, H, S);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -104,13 +131,18 @@ E2E_EXPORT int e2e_lstm_bidir_fwd(const float* xp_fw, const float* xp_bw,
                                   const float* mask_bw, float* h_fw,
                                   float* h_bw, int T, int B, int H,
                                   cudaStream_t stream) {
-  if (H < 1 || H > 1024 || B < 1 || B > 65535 || T < 1)
-    return cudaErrorInvalidValue;
-  const int Hp = (H + 31) / 32 * 32;
-  const int S = max(1, min(4, 1024 / Hp));  // reduction slices per unit
-  const size_t smem = static_cast<size_t>(H) * (1 + 4 * S) * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  lstm_bidir_fwd_kernel<<<dim3(B, 2), Hp * S, smem, stream>>>(
-      xp_fw, xp_bw, w_fw, w_bw, mask_bw, h_fw, h_bw, T, B, H, S);
-  return cudaGetLastError();
+  return launch_fwd(xp_fw, xp_bw, w_fw, w_bw, mask_bw, h_fw, h_bw, nullptr,
+                    nullptr, T, B, H, stream);
+}
+
+// The training form: as e2e_lstm_bidir_fwd, and also c_fw, c_bw [T,B,H].
+E2E_EXPORT int e2e_lstm_bidir_fwd_train(const float* xp_fw, const float* xp_bw,
+                                        const float* w_fw, const float* w_bw,
+                                        const float* mask_bw, float* h_fw,
+                                        float* h_bw, float* c_fw, float* c_bw,
+                                        int T, int B, int H,
+                                        cudaStream_t stream) {
+  if (c_fw == nullptr || c_bw == nullptr) return cudaErrorInvalidValue;
+  return launch_fwd(xp_fw, xp_bw, w_fw, w_bw, mask_bw, h_fw, h_bw, c_fw,
+                    c_bw, T, B, H, stream);
 }

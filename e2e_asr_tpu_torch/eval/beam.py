@@ -33,8 +33,8 @@ from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.kernels import beam_select, dec_step
 from e2e_asr_tpu_torch.kernels.beam_select import NEG_INF
 from e2e_asr_tpu_torch.models import attn_decoder
-from e2e_asr_tpu_torch.shared import (EOS_ID, GO_ID, BeamConfig,
-                                     DecoderConfig)
+from e2e_asr_tpu_torch.config import BeamConfig, DecoderConfig
+from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID
 
 
 class BeamState(NamedTuple):

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from e2e_asr_tpu_torch.shared import BeamConfig, Seq2SeqConfig
+from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.eval.beam import beam_decode, check_supported
 from e2e_asr_tpu_torch.models import seq2seq
 

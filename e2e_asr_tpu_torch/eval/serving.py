@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.core.checkpoint import to_device
+from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.eval.beam_eval import make_beam_decoder
-from e2e_asr_tpu_torch.shared import (BeamConfig, Seq2SeqConfig,
-                                     get_relevant_words, ids_to_sentence)
+from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
+from e2e_asr_tpu_torch.data.text import get_relevant_words, ids_to_sentence
 
 
 @dataclass
@@ -57,7 +58,7 @@ class BatchingTranscriber:
     """Queue -> bucket -> pad -> batched beam decode -> transcripts."""
 
     def __init__(self, params: dict, cfg: Seq2SeqConfig,
-                 rev_vocab: list[str], *, device,
+                 rev_vocab: list[str], *, device=None,
                  beam_cfg: BeamConfig | None = None,
                  bucket_frames: tuple[int, ...] = (128, 256, 512),
                  max_batch: int = 8, max_wait_ms: float = 20.0,
@@ -65,7 +66,8 @@ class BatchingTranscriber:
                  with_confidence: bool = False,
                  per_request_bias: float = 0.0):
         """params: the port's parameter dict (models/seq2seq.init layout);
-        it is moved to `device` (a no-op when it is already there)."""
+        it is moved to `device` (a no-op when it is already there; default:
+        the CUDA card, and raises without one)."""
         todo = "is not ported yet (ROADMAP.md Queue 1, '{}')"
         if mesh is not None:
             raise NotImplementedError("mesh serving " + todo.format(
@@ -79,7 +81,7 @@ class BatchingTranscriber:
         if with_confidence:
             raise NotImplementedError("confidence scores " + todo.format(
                 "Decode features"))
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
         self.rev_vocab = rev_vocab

@@ -1,6 +1,10 @@
 """Build the CUDA sources in `e2e_asr_tpu_torch/csrc/` into one shared
 library with a plain C interface and load it with ctypes.
 
+Each source compiles in its own `nvcc` process, all started together, and
+the objects are linked into the library, so the build takes about as long
+as the slowest source.
+
 The library is compiled by `nvcc` for `sm_90a` at first use, into
 `build/e2e_asr_tpu_torch/` at the repository root, under a name keyed by a
 hash of the sources: an edited source never loads a stale build. Nothing is
@@ -23,13 +27,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "e2e_asr_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes of every C entry point (restype is int: a cudaError_t).
 _SIGNATURES = {
     "e2e_lstm_bidir_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "e2e_lstm_bidir_fwd_train": [_P] * 9 + [_I, _I, _I, _P],
+    "e2e_lstm_bwd": [_P, _I, _I, _I, _I, _I, _P],
+    "e2e_lstm_bwd_capacity": [_I, _P],
+    "e2e_dec_train_fwd": [_P, _I, _P, _P],
+    "e2e_dec_train_bwd": [_P, _I, _P, _P],
     "e2e_cells_fused": [_P, _I, _P, _I, _P],
     "e2e_output_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "e2e_beam_select": [_P, _P, _P, _P, _I, _I, _I, _I,
@@ -71,14 +81,32 @@ def build() -> Path:
         if lib.exists():
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{lib.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs = [proc.communicate()[0] for _, _, proc in jobs]
+        report = []
+        for (cmd, _, proc), out in zip(jobs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+            report.append(out)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        Path(str(lib) + ".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        for _, obj, _ in jobs:
+            obj.unlink()
+        Path(str(lib) + ".ptxas.txt").write_text("".join(report))
         os.replace(tmp, lib)
         return lib
 

@@ -1,5 +1,6 @@
-"""Bahdanau-attention LSTM decoder: parameters and attention (port of
-e2e_asr_tpu/models/attn_decoder.py, the parts the beam search uses).
+"""Bahdanau-attention LSTM decoder (port of e2e_asr_tpu/models/
+attn_decoder.py): parameters, attention, the step and the teacher-forced
+training pass.
 
 Per-step structure, order preserved from the reference:
   internal "LM LSTM" on the previous token embedding
@@ -8,8 +9,12 @@ Per-step structure, order preserved from the reference:
   -> decoder LSTM cells (1..N layers)
   -> attention over the precomputed W*h_enc with a masked softmax
   -> AttnProjection of [query, context] -> OutputProjection logits.
-The attention query is the top cell's **c** state. The step itself is
-kernels B and C around `attention` (eval/beam.py).
+The attention query is the top cell's **c** state. At inference the step
+is kernels B and C around `attention` (eval/beam.py). In training,
+`apply_train` runs all steps with scheduled sampling (one coin per step for
+the whole batch, gumbel-max sampling from the previous step's logits) and
+dropout: as the plain scan over `step` on the CPU, and as the fused
+training kernels (kernels/dec_train.py) on the card.
 """
 from __future__ import annotations
 
@@ -17,10 +22,11 @@ from typing import NamedTuple
 
 import torch
 
-from e2e_asr_tpu_torch.shared import DecoderConfig
+from e2e_asr_tpu_torch.config import DecoderConfig
 from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.core.layers import (dense, dense_params,
                                            glorot_uniform, uniform_init)
+from e2e_asr_tpu_torch.kernels import dec_train
 
 NEG_INF = -1e30
 
@@ -30,6 +36,14 @@ class AttnContext(NamedTuple):
     enc_states: torch.Tensor       # [B, T_enc, H_enc]
     hidden_features: torch.Tensor  # [B, T_enc, A] = enc_states @ attn_w
     mask: torch.Tensor             # [B, T_enc] float 1/0 validity
+
+
+class DecState(NamedTuple):
+    """Per-step decoder carry (everything but the next input embedding)."""
+    cell_states: tuple             # LSTMState per decoder layer
+    lm_state: cells.LSTMState
+    context: torch.Tensor          # [B, H_enc] previous attention context
+    alpha: torch.Tensor            # [B, T_enc] previous attention weights
 
 
 def check_supported(cfg: DecoderConfig) -> None:
@@ -103,3 +117,124 @@ def attention(params: dict, ctx: AttnContext, query: torch.Tensor
     y = dense(params["attn_query"], query)
     context, alpha = alpha_context(params, ctx, y[:, None, :])
     return context[:, 0], alpha[:, 0]
+
+
+def zero_state(cfg: DecoderConfig, batch: int, ctx: AttnContext) -> DecState:
+    dev = ctx.enc_states.device
+    return DecState(
+        cell_states=tuple(cells.lstm_zero_state((batch,), cfg.hidden_size_dec,
+                                                device=dev)
+                          for _ in range(cfg.num_layers_dec)),
+        lm_state=cells.lstm_zero_state((batch,), cfg.lm_hidden_size,
+                                       device=dev),
+        context=ctx.enc_states.new_zeros(batch, ctx.enc_states.shape[-1]),
+        alpha=ctx.enc_states.new_zeros(batch, ctx.enc_states.shape[1]))
+
+
+def step(params: dict, cfg: DecoderConfig, ctx: AttnContext, state: DecState,
+         lm_input: torch.Tensor, *, lm_drop_mask=None, inter_drop_masks=None
+         ) -> tuple[DecState, torch.Tensor]:
+    """One decoder step; lm_input [B, emb] is the previous token's
+    embedding. Returns (new_state, logits [B, V]). Dropout masks (float,
+    already scaled by 1/keep): lm_drop_mask on the LM cell's output,
+    inter_drop_masks between stacked decoder cells."""
+    lm_output, new_lm_state = cells.lstm_step(params["lm_cell"], lm_input,
+                                              state.lm_state)
+    if lm_drop_mask is not None:
+        lm_output = lm_output * lm_drop_mask
+    if "simple_proj" in params:
+        lm_output = dense(params["simple_proj"], lm_output)
+    h = dense(params["input_proj"],
+              torch.cat([lm_output, state.context], dim=-1))
+    new_cell_states = []
+    for layer, cell_params in enumerate(params["dec_cells"]):
+        h, new_s = cells.lstm_step(cell_params, h, state.cell_states[layer])
+        if inter_drop_masks is not None and layer < len(
+                params["dec_cells"]) - 1:
+            h = h * inter_drop_masks[layer]
+        new_cell_states.append(new_s)
+    query = new_cell_states[-1].c
+    context, alpha = attention(params, ctx, query)
+    proj = dense(params["attn_proj"], torch.cat([query, context], dim=-1))
+    out_proj = params["output_proj_ind" if cfg.ind_softmax else "output_proj"]
+    logits = dense(out_proj, proj)
+    return DecState(tuple(new_cell_states), new_lm_state, context,
+                    alpha), logits
+
+
+def train_noise(gen: torch.Generator, cfg: DecoderConfig, steps: int, B: int,
+                device) -> tuple:
+    """The randomness of one training pass, drawn from `gen`:
+    (flags [steps] 0/1 float, gumbel [steps, B, V], lm_masks
+    [steps, B, lm_hidden] or None, inter_masks tuple of [steps, B, hidden]).
+    flags and gumbel are None without scheduled sampling; the masks are
+    float keep-masks scaled by 1/keep, None (and ()) without dropout. The
+    reference draws the same distributions (attn_decoder.train_noise)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device).to(device)
+
+    flags = gumbel = None
+    if cfg.samp_prob > 0:
+        flags = (rand(steps) >= 1.0 - cfg.samp_prob).float()
+        u = rand(steps, B, cfg.vocab_size).clamp_min(1e-20)
+        gumbel = -torch.log(-torch.log(u))
+    lm_masks, inter_masks = None, ()
+    keep = cfg.out_prob_dec
+    if keep < 1.0:
+        lm_masks = (rand(steps, B, cfg.lm_hidden_size) < keep).float() / keep
+        inter_masks = tuple(
+            (rand(steps, B, cfg.hidden_size_dec) < keep).float() / keep
+            for _ in range(cfg.num_layers_dec - 1))
+    return flags, gumbel, lm_masks, inter_masks
+
+
+def apply_train(params: dict, cfg: DecoderConfig, dec_inputs: torch.Tensor,
+                enc_states: torch.Tensor, enc_lens: torch.Tensor, *,
+                gen: torch.Generator | None = None, noise=None
+                ) -> torch.Tensor:
+    """Teacher-forced training pass with scheduled sampling.
+
+    dec_inputs: [T, B] time-major ids starting with <go>; enc_states
+    [B, T_enc, H_enc]. noise: `train_noise`'s tuple, or None to draw it
+    from `gen`. Returns logits [T-1, B, V] (logits[t] predicts
+    dec_inputs[t+1]). On the card the fused training kernels run; on the
+    CPU the plain scan over `step`.
+    """
+    check_supported(cfg)
+    T, B = dec_inputs.shape
+    steps = T - 1
+    dev = enc_states.device
+    if noise is None:
+        noise = train_noise(gen, cfg, steps, B, dev)
+    flags, gumbel, lm_masks, inter_masks = noise
+    if cfg.samp_prob <= 0:
+        flags = gumbel = None
+    else:
+        flags, gumbel = flags.to(dev), gumbel.to(dev)
+    if cfg.out_prob_dec >= 1.0:
+        lm_masks, inter_masks = None, ()
+    else:
+        lm_masks = lm_masks.to(dev)
+        inter_masks = tuple(m.to(dev) for m in inter_masks)
+    emb = params["embedding"]
+    emb_inputs = emb[dec_inputs.long()]                       # [T, B, emb]
+    if dev.type == "cuda":
+        return dec_train.apply_train_fused(params, cfg, emb_inputs,
+                                           enc_states, enc_lens, flags,
+                                           gumbel, lm_masks)
+    ctx = make_attn_context(params, enc_states, enc_lens)
+    state = zero_state(cfg, B, ctx)
+    lm_input = emb_inputs[0]
+    logits_all = []
+    for t in range(steps):
+        state, logits = step(
+            params, cfg, ctx, state, lm_input,
+            lm_drop_mask=None if lm_masks is None else lm_masks[t],
+            inter_drop_masks=(tuple(m[t] for m in inter_masks)
+                              if lm_masks is not None else None))
+        lm_input = emb_inputs[t + 1]
+        if flags is not None and flags[t] >= 0.5:
+            sampled = torch.argmax(logits.detach() + gumbel[t], dim=-1)
+            lm_input = emb[sampled]
+        logits_all.append(logits)
+    return torch.stack(logits_all)

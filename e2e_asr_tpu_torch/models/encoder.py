@@ -1,17 +1,19 @@
-"""Pyramidal BiLSTM encoder, inference (port of the RNN branch of
+"""Pyramidal BiLSTM encoder (port of the RNN branch of
 e2e_asr_tpu/models/encoder.py).
 
 A stack of bidirectional LSTM layers; between layers, `skip_step`
 consecutive frames are concatenated (halving the time resolution) until the
 total reduction reaches `max_scaling_down`. Lengths follow ceil division.
+In training each layer's output takes dropout with keep probability
+`out_prob`, one keep-mask [T_d, B, 2H] per layer.
 """
 from __future__ import annotations
 
 import torch
 
-from e2e_asr_tpu_torch.shared import EncoderConfig
+from e2e_asr_tpu_torch.config import EncoderConfig
 from e2e_asr_tpu_torch.core import cells, rnn
-from e2e_asr_tpu_torch.core.layers import uniform_init
+from e2e_asr_tpu_torch.core.layers import dropout_mask, uniform_init
 
 
 def _enc_init(gen, shape, *, device=None):
@@ -29,7 +31,7 @@ def _check_supported(cfg: EncoderConfig) -> None:
     if not cfg.bi_dir:
         raise NotImplementedError(
             "forward-only encoders need the unidirectional LSTM kernel "
-            "(ROADMAP.md Queue 2, kernels #3-#5)")
+            "(ROADMAP.md Queue 2, kernel #3)")
 
 
 def layer_plan(cfg: EncoderConfig, max_depth: int) -> list[bool]:
@@ -82,19 +84,24 @@ def pyramid_reduce(x: torch.Tensor, lens: torch.Tensor, skip_step: int
 
 def apply(params: dict, cfg: EncoderConfig, x: torch.Tensor,
           seq_len: torch.Tensor, num_layers: dict[str, int], *,
-          train: bool = False, compute_dtype=None):
-    """Run the encoder at inference.
+          train: bool = False, compute_dtype=None, gen=None,
+          drop_masks: dict | None = None):
+    """Run the encoder.
 
     x: [B, T, F] batch-major features; seq_len: [B] true frame counts;
     num_layers: task -> encoder depth whose output that task attends to.
+    train: output dropout on every layer, keep-masks from drop_masks
+    {depth: bool [T_d, B, 2H]} where given, else drawn from `gen` (the
+    reference draws layer d's from fold_in(rng, d)).
     Returns (attention_states {depth: [B, T_d, H_out]},
              time_major_states {depth: [T_d, B, H_out]},
              seq_lens {depth: [B]}).
     """
     _check_supported(cfg)
-    if train:
-        raise NotImplementedError("encoder training is ROADMAP.md Queue 1, "
-                                  "slice 2")
+    if train and cfg.remat:
+        raise NotImplementedError("remat is not ported yet (ROADMAP.md "
+                                  "Queue 1, 'Training extensions')")
+    drop = train and cfg.out_prob < 1.0
     max_depth = max(num_layers.values())
     want_attn = {d for t, d in num_layers.items() if t != "state"}
     want_time_major = {d for t, d in num_layers.items() if t == "state"}
@@ -109,9 +116,18 @@ def apply(params: dict, cfg: EncoderConfig, x: torch.Tensor,
     layer_in = x
     for i in range(max_depth):
         depth = i + 1
-        out_tm = rnn.rnn_layer(params[f"layer_{depth}"],
-                               layer_in.transpose(0, 1), seq_len,
-                               compute_dtype=compute_dtype)
+        x_tm = layer_in.transpose(0, 1)
+        out_dropout = None
+        if drop:
+            mask = (drop_masks or {}).get(depth)
+            if mask is None:
+                mask = dropout_mask(gen, (x_tm.shape[0], x_tm.shape[1],
+                                          2 * cfg.hidden_size),
+                                    cfg.out_prob, x.device)
+            out_dropout = (cfg.out_prob, mask.to(x.device))
+        out_tm = rnn.rnn_layer(params[f"layer_{depth}"], x_tm, seq_len,
+                               compute_dtype=compute_dtype,
+                               out_dropout=out_dropout)
         if depth in want_time_major:
             time_major_states[depth] = out_tm
         out_bm = out_tm.transpose(0, 1)

@@ -1,10 +1,12 @@
-"""Seq2seq assembly: encoder + one attention decoder per task (port of the
-inference half of e2e_asr_tpu/models/seq2seq.py)."""
+"""Seq2seq assembly: encoder + one attention decoder per task (port of
+e2e_asr_tpu/models/seq2seq.py): init, encode and the training forward."""
 from __future__ import annotations
 
 import torch
 
-from e2e_asr_tpu_torch.shared import Seq2SeqConfig
+from e2e_asr_tpu_torch.config import Seq2SeqConfig
+from e2e_asr_tpu_torch.core import losses
+from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.models import attn_decoder, encoder
 
 
@@ -16,8 +18,10 @@ def check_supported(cfg: Seq2SeqConfig) -> None:
 
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device=None) -> dict:
-    """Random parameters laid out like e2e_asr_tpu.models.seq2seq.init."""
+    """Random parameters laid out like e2e_asr_tpu.models.seq2seq.init, on
+    `device` (default: the CUDA card; raises without one)."""
     check_supported(cfg)
+    device = resolve(device)
     max_depth = max(cfg.num_layers.values())
     attn_size = cfg.encoder.hidden_size * (2 if cfg.encoder.bi_dir else 1)
     params = {"encoder": encoder.init(gen, cfg.encoder, max_depth,
@@ -42,13 +46,61 @@ def stack_frames(x: torch.Tensor, stack_cons: int) -> torch.Tensor:
 
 def encode(params: dict, cfg: Seq2SeqConfig, feats: torch.Tensor,
            feat_lens: torch.Tensor, *, train: bool = False,
-           compute_dtype=None):
+           compute_dtype=None, gen=None, drop_masks=None):
     """feats [B, T, feat] -> encoder.apply's (attention_states,
     time_major_states, seq_lens)."""
     feats = stack_frames(feats, cfg.encoder.stack_cons)
     return encoder.apply(params["encoder"], cfg.encoder, feats, feat_lens,
                          cfg.num_layers, train=train,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, gen=gen,
+                         drop_masks=drop_masks)
+
+
+def _check_train_supported(cfg: Seq2SeqConfig) -> None:
+    if cfg.ctc_weight > 0:
+        raise NotImplementedError("the hybrid CTC/attention loss is not "
+                                  "ported yet (ROADMAP.md Queue 1, 'CTC "
+                                  "family')")
+    if cfg.lora_rank > 0:
+        raise NotImplementedError("LoRA is not ported yet (ROADMAP.md Queue "
+                                  "1, 'Training extensions')")
+
+
+def apply_train(params: dict, cfg: Seq2SeqConfig, batch: dict, *,
+                gen: torch.Generator | None = None, noise: dict | None = None
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Full training forward: returns (total_loss, per-task losses).
+
+    batch: {"logmel": [B,T,F], "logmel_len": [B], task: [B,T_task] ids
+    starting with <go>, f"{task}_len": [B]} as tensors on the parameters'
+    device. Target lengths count the shifted targets (incl. <eos>).
+    noise: {"encoder": {depth: bool keep-mask [T_d, B, 2H]}, task:
+    attn_decoder.train_noise tuple}; whatever it lacks is drawn from `gen`.
+    The reference draws the encoder's from fold_in(rng_enc, depth) and task
+    i's decoder noise from fold_in(rng_dec, i).
+    """
+    check_supported(cfg)
+    _check_train_supported(cfg)
+    noise = noise or {}
+    attn_states, _, enc_lens = encode(params, cfg, batch["logmel"],
+                                      batch["logmel_len"], train=True,
+                                      gen=gen, drop_masks=noise.get("encoder"))
+    task_losses = {}
+    for task in cfg.tasks:
+        depth = cfg.num_layers[task]
+        dec_inputs = batch[task].transpose(0, 1)                 # [T, B]
+        logits = attn_decoder.apply_train(
+            params[f"decoder_{task}"], cfg.decoders[task], dec_inputs,
+            attn_states[depth], enc_lens[depth], gen=gen,
+            noise=noise.get(task))
+        targets, _ = losses.shifted_targets(dec_inputs, batch[f"{task}_len"])
+        task_losses[task] = losses.cross_entropy_loss(
+            logits, targets, batch[f"{task}_len"],
+            label_smoothing=cfg.label_smoothing)
+    total = sum(task_losses.values())
+    if cfg.avg:
+        total = total / float(len(cfg.tasks))
+    return total, task_losses
 
 
 def param_count(params) -> int:

@@ -18,7 +18,7 @@ from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.eval import beam_eval
 from e2e_asr_tpu_torch.kernels import dec_step, lstm_bidir
 from e2e_asr_tpu_torch.models import attn_decoder, seq2seq
-from e2e_asr_tpu_torch.shared import (BeamConfig, DecoderConfig,
+from e2e_asr_tpu_torch.config import (BeamConfig, DecoderConfig,
                                       EncoderConfig, Seq2SeqConfig)
 
 torch.set_num_threads(1)
@@ -103,7 +103,8 @@ def test_beam_decoder_cuda_matches_cpu(cuda):
             hidden_size_dec=16, emb_size=12, vocab_size=20,
             attention_vec_size=8, lm_hidden_size=16, max_output=12)},
         feat_length=8)
-    params = seq2seq.init(torch.Generator().manual_seed(3), cfg)
+    params = seq2seq.init(torch.Generator().manual_seed(3), cfg,
+                          device="cpu")
     rng = np.random.default_rng(3)
     batch = {"logmel": rng.normal(size=(4, 24, 8)).astype(np.float32),
              "logmel_len": np.array([24, 17, 9, 2])}

@@ -56,7 +56,7 @@ def _batch(seed, lens, T=None, feat=8):
 
 def test_encode_matches_jax(setup):
     cfg, _, jparams, named, _ = setup
-    params = checkpoint.params_from_named(named, cfg)
+    params = checkpoint.params_from_named(named, cfg, "cpu")
     feats, lens = _batch(0, [29, 17, 8, 1], T=30)
     want = jseq2seq.encode(jparams, cfg, jnp.asarray(feats),
                            jnp.asarray(lens))
@@ -80,7 +80,8 @@ def test_beam_decoder_matches_jax(setup, beam_size, penalty, eos_bias):
     out["bias"] = out["bias"].at[text.EOS_ID].add(eos_bias)
     jparams = {**jparams, "decoder_char": {**jparams["decoder_char"],
                                            "output_proj": out}}
-    params = checkpoint.params_from_named(jckpt.flatten_named(jparams), cfg)
+    params = checkpoint.params_from_named(jckpt.flatten_named(jparams), cfg,
+                                      "cpu")
     bc = BeamConfig(beam_size=beam_size, max_steps=16,
                     word_ins_penalty=penalty)
     feats, lens = _batch(1, [32, 21, 9, 14, 3])
@@ -100,7 +101,7 @@ def test_serving_matches_jax_and_one_by_one(setup):
     """The port's engine gives JAX's engine's transcripts on the same
     requests, and batched output equals one-by-one output."""
     cfg, rev_vocab, jparams, named, _ = setup
-    params = checkpoint.params_from_named(named, cfg)
+    params = checkpoint.params_from_named(named, cfg, "cpu")
     rng = np.random.default_rng(2)
     feats = [_feats(rng, T) for T in [16, 40, 33, 60, 12, 64, 25]]
     kw = dict(beam_cfg=BeamConfig(beam_size=2, max_steps=16),
@@ -124,7 +125,7 @@ def test_serving_matches_jax_and_one_by_one(setup):
 
 def test_unported_features_raise(setup):
     cfg, rev_vocab, _, named, _ = setup
-    params = checkpoint.params_from_named(named, cfg)
+    params = checkpoint.params_from_named(named, cfg, "cpu")
     kw = dict(device="cpu", bucket_frames=(32,))
     for extra in (dict(with_confidence=True), dict(per_request_bias=1.0),
                   dict(mesh=object()), dict(lm_params={}),
@@ -136,4 +137,5 @@ def test_unported_features_raise(setup):
         beam_eval.make_beam_decoder(cfg, BeamConfig(), nbest=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         seq2seq.init(torch.Generator(),
-                     dataclasses.replace(cfg, model_family="ctc"))
+                     dataclasses.replace(cfg, model_family="ctc"),
+                     device="cpu")

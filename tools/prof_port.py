@@ -4,7 +4,8 @@
     python3 tools/prof_port.py [--out FILE.json]
 
 Uses the flagship model of chip_smoke.py (random weights from seed 0) and
-measures, float32 with TF32 off:
+measures, float32 with TF32 off (the training kernels' isolated times are
+chip_smoke.py's):
 
 1. each kernel at the serving shapes (A: T=512/256/128/64, B=8, H=256;
    B, C: N=32 rows; D: B=8, k=4, V=40), beside its plain PyTorch version:
@@ -20,7 +21,12 @@ measures, float32 with TF32 off:
    beam 4, 120 steps): `wall_ms` on the host clock around the decode and a
    device sync; `busy_ms`, the union of the intervals of all device
    activity in its trace (overlaps counted once); `busy_share` =
-   busy_ms / wall_ms; and the encoder's wall alone.
+   busy_ms / wall_ms; and the encoder's wall alone;
+3. one asr_step of the flagship at the bench's train shape (B=128, T=384,
+   L=48; after two warm-up steps): its wall, device busy share, and the
+   device time and launches of each kernel in its trace, the port's own
+   kernels by name and PyTorch's (the matmuls outside the kernels, the
+   elementwise work, the optimizer) summed as "other".
 
 Traces are written under build/e2e_asr_tpu_torch/prof/. Prints one line per
 measurement, the card's name and power limit first, and the JSON of all
@@ -48,7 +54,8 @@ from e2e_asr_tpu_torch.eval import beam_eval  # noqa: E402
 from e2e_asr_tpu_torch.kernels import (beam_select, build,  # noqa: E402
                                        dec_step, lstm_bidir)
 from e2e_asr_tpu_torch.models import seq2seq  # noqa: E402
-from e2e_asr_tpu_torch.shared import BeamConfig  # noqa: E402
+from e2e_asr_tpu_torch.train import step  # noqa: E402
+from e2e_asr_tpu_torch.config import BeamConfig, LMConfig  # noqa: E402
 
 TRACE_DIR = ROOT / "build" / "e2e_asr_tpu_torch" / "prof"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -204,6 +211,52 @@ def profile_decode(params, cfg, dev) -> dict:
     return out
 
 
+OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
+               "lstm_dw_kernel", "lstm_dw_sum_kernel", "dec_train_fwd_kernel",
+               "dec_train_bwd_kernel")
+
+
+def profile_train(cfg, dev) -> dict:
+    lm_cfg = LMConfig(vocab_size=cfg.decoders["char"].vocab_size)
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    asr_step, _ = step.make_train_step(cfg, lm_cfg, device=dev)
+    state = step.create_state(params, cfg, lm_cfg, device=dev)
+    batch = chip_smoke.train_batch(np.random.default_rng(6),
+                                   chip_smoke.TRAIN_B, cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for _ in range(2):
+        state, _ = asr_step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = asr_step(state, batch, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    holder = {}
+
+    def one():
+        holder["state"], _ = asr_step(state, batch, gen)
+
+    events = device_events(one, 1, "train_step")
+    split = {}
+    for e in events:
+        name = next((k for k in OWN_KERNELS if k in e["name"]), "other")
+        ms, n = split.get(name, (0.0, 0))
+        split[name] = (ms + e["dur"] / 1e3, n + 1)
+    busy = busy_us(events) / 1e3
+    row = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+           "frames": int(batch["logmel_len"].sum()),
+           "kernels": {k: {"device_ms": ms, "launches": n}
+                       for k, (ms, n) in sorted(split.items())}}
+    print(f"train step B={chip_smoke.TRAIN_B} T={chip_smoke.TRAIN_T} "
+          f"L={chip_smoke.TRAIN_L}: wall {wall:.2f} ms, busy {busy:.2f} ms "
+          f"({busy / wall:.3f})", flush=True)
+    for k, v in row["kernels"].items():
+        print(f"  {k}: {v['device_ms']:.3f} ms device, {v['launches']} "
+              "launches", flush=True)
+    return {"train_step": row}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the JSON here")
@@ -225,6 +278,7 @@ def main() -> int:
                               device=dev)
         result = {"card": card, **profile_kernels(params, cfg, dev),
                   **profile_decode(params, cfg, dev)}
+    result.update(profile_train(cfg, dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
