@@ -220,21 +220,6 @@ size_t chain_smem(int H) {
 
 }  // namespace
 
-// How many chains (blocks of the chain kernel) the card runs at once.
-E2E_EXPORT int e2e_lstm_bwd_capacity(int H, int* chains) {
-  if (H < 1 || H > 1024) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int Hp = (H + 31) / 32 * 32;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lstm_bwd_chain_kernel, Hp * chain_slices(H), chain_smem(H));
-  *chains = per_sm * sms;
-  return e;
-}
-
 // ptrs: per direction (n_dirs of them) w [H,4H], h [T,B,H], c [T,B,H],
 // x_proj [T,B,4H], g [T,B,H], mask [T,B] or NULL, dx [T,B,4H] (out),
 // dw [H,4H] (out), part [splits,H,4H] (scratch).

@@ -216,17 +216,6 @@ def lstm_bidir_bwd(w_h_fw, w_h_bw, h_fw, c_fw, x_proj_fw, g_fw, h_bw, c_bw,
     return dx_fw, dw_fw, dx_bw, dw_bw
 
 
-def chain_capacity(H: int, device) -> int:
-    """How many backward chains (batch row x direction) the card runs at
-    once."""
-    lib = build.library()
-    chains = build.ints(0)
-    with torch.cuda.device(device):
-        build.check(lib.e2e_lstm_bwd_capacity(H, chains),
-                    "lstm_bwd_capacity")
-    return chains[0]
-
-
 class _LSTMBidir(torch.autograd.Function):
     """Training forward (saves h and c) with the hand-written backward."""
 
@@ -243,17 +232,8 @@ class _LSTMBidir(torch.autograd.Function):
         xf, xb, wf, wb, mask, h_fw, h_bw, c_fw, c_bw = ctx.saved_tensors
         g_fw = torch.zeros_like(h_fw) if g_fw is None else g_fw.contiguous()
         g_bw = torch.zeros_like(h_bw) if g_bw is None else g_bw.contiguous()
-        T, B, H = h_fw.shape
-        if h_fw.device.type == "cuda" and 2 * B > chain_capacity(
-                H, h_fw.device):
-            # Both directions' 2B chains do not fit the card at once, so
-            # one launch would run in two waves: two launches, one per
-            # direction, take the same time.
-            dx_fw, dw_fw = lstm_bwd(wf, h_fw, c_fw, xf, g_fw)
-            dx_bw, dw_bw = lstm_bwd(wb, h_bw, c_bw, xb, g_bw, mask)
-        else:
-            dx_fw, dw_fw, dx_bw, dw_bw = lstm_bidir_bwd(
-                wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw, xb, g_bw, mask)
+        dx_fw, dw_fw, dx_bw, dw_bw = lstm_bidir_bwd(
+            wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw, xb, g_bw, mask)
         return dx_fw, dx_bw, dw_fw, dw_bw, None
 
 

@@ -64,27 +64,36 @@ def make_batch(seed: int) -> dict:
 def jax_noise(cfg, key, batch) -> dict:
     """JAX's noise for apply_train(rng=key) (seq2seq.py:81, encoder.py:258,
     attn_decoder.py:235), as the port's noise dict."""
-    rng_enc, rng_dec = jax.random.split(key)
     plan = encoder.layer_plan(cfg.encoder, cfg.num_layers["char"])
-    t, masks = batch["logmel"].shape[1], {}
-    for i, reduce in enumerate(plan):
-        masks[i + 1] = torch.tensor(np.asarray(jax.random.bernoulli(
-            jax.random.fold_in(rng_enc, i + 1), cfg.encoder.out_prob,
-            (t, B, 2 * cfg.encoder.hidden_size))))
-        t = -(-t // cfg.encoder.skip_step) if reduce else t
-    flags, gumbel, lm_masks, inter = jdec.train_noise(
-        jax.random.fold_in(rng_dec, 0), cfg.decoders["char"], L - 1, B)
+
+    @jax.jit
+    def draw(key):
+        rng_enc, rng_dec = jax.random.split(key)
+        t, masks = batch["logmel"].shape[1], []
+        for i, reduce in enumerate(plan):
+            masks.append(jax.random.bernoulli(
+                jax.random.fold_in(rng_enc, i + 1), cfg.encoder.out_prob,
+                (t, B, 2 * cfg.encoder.hidden_size)))
+            t = -(-t // cfg.encoder.skip_step) if reduce else t
+        return masks, jdec.train_noise(jax.random.fold_in(rng_dec, 0),
+                                       cfg.decoders["char"], L - 1, B)
+
+    masks, (flags, gumbel, lm_masks, inter) = draw(key)
     to = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
-    return {"encoder": masks,
+    return {"encoder": {i + 1: to(m) for i, m in enumerate(masks)},
             "char": (to(flags), to(gumbel), to(lm_masks),
                      tuple(to(m) for m in inter))}
 
 
 @pytest.fixture(scope="module")
 def setup():
+    """The config, JAX-initialized params (also by name) and JAX's jitted
+    clip + Adam update, compiled once for the tests of this file."""
     cfg = train_cfg()
     jparams = jax.jit(lambda k: jseq2seq.init(k, cfg))(jax.random.PRNGKey(3))
-    return cfg, jparams, jckpt.flatten_named(jparams)
+    jupdate = jax.jit(jstep.make_optimizer(cfg.learning_rate,
+                                           cfg.max_gradient_norm).update)
+    return cfg, jparams, jckpt.flatten_named(jparams), jupdate
 
 
 def assert_leaves_close(got: dict, want: dict, rel: float = 1e-4):
@@ -118,13 +127,11 @@ def test_cross_entropy_matches_jax(smoothing):
 def test_optimizer_matches_optax(setup):
     """Three clip + Adam steps from numpy gradients: the second is clipped
     (norm above 5.0) and the third runs after set_lr."""
-    cfg, jparams, named = setup
+    cfg, jparams, named, jupdate = setup
     lm_cfg = LMConfig(vocab_size=V)
     jstate = jstep.create_state(jparams, cfg, lm_cfg)
     state = step.create_state(checkpoint.params_from_named(named, cfg, "cpu"),
                               cfg, lm_cfg, device="cpu")
-    jupdate = jax.jit(jstep.make_optimizer(cfg.learning_rate,
-                                           cfg.max_gradient_norm).update)
     port_opt = step.make_optimizer(cfg.learning_rate, cfg.max_gradient_norm)
     rng = np.random.default_rng(1)
     for i, scale in enumerate([0.01, 10.0, 0.02]):
@@ -158,37 +165,31 @@ def test_asr_step_matches_jax(setup):
     """One asr_step on the flagship configuration at small width, all noise
     on: the loss and every gradient leaf against JAX's value_and_grad, and
     the params after the step where |g| is well above the tolerance (Adam's
-    first update is about lr * sign(g))."""
-    cfg, jparams, named = setup
+    first update is about lr * sign(g)). The step's gradients are read from
+    its new Adam state: after one unclipped step mu = (1 - b1) * g."""
+    cfg, jparams, named, jupdate = setup
     batch = make_batch(5)
     key = jax.random.PRNGKey(7)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     lm_cfg = LMConfig(vocab_size=V)
     jstate = jstep.create_state(jparams, cfg, lm_cfg)
-
-    @jax.jit
-    def jax_step(params, opt_state):
-        # JAX's asr_step (train/step.py:333), keeping the loss and grads.
-        (loss, _), grads = jax.value_and_grad(
-            lambda p: jseq2seq.apply_train(p, cfg, jbatch, rng=key),
-            has_aux=True)(params)
-        updates, _ = jstep.make_optimizer(
-            cfg.learning_rate, cfg.max_gradient_norm).update(
-                grads, opt_state, params)
-        return loss, grads, optax.apply_updates(params, updates)
-
-    jloss, jgrads, jnew = jax_step(jstate.params, jstate.opt_state)
+    # JAX's asr_step (train/step.py:333), keeping the loss and grads.
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jseq2seq.apply_train(p, cfg, jbatch, rng=key),
+        has_aux=True))(jstate.params)
+    assert float(optax.global_norm(jgrads)) < cfg.max_gradient_norm
+    updates, _ = jupdate(jgrads, jstate.opt_state, jstate.params)
+    jnew = optax.apply_updates(jstate.params, updates)
     noise = jax_noise(cfg, key, batch)
 
     state = step.create_state(checkpoint.params_from_named(named, cfg, "cpu"),
                               cfg, lm_cfg, device="cpu")
     port_step, _ = step.make_train_step(cfg, lm_cfg, device="cpu")
     new_state, metrics = port_step(state, batch, None, noise=noise)
-    loss, _, g = port_step.loss_and_grads(state.params, batch, None, noise)
-    assert float(loss) == float(metrics["loss"])
-    grads = checkpoint.named_from_params(g)
     np.testing.assert_allclose(float(metrics["loss"]), float(jloss),
                                rtol=1e-5)
+    mu = checkpoint.named_from_params(new_state.opt_state.mu)
+    grads = {k: v / (1 - step.B1) for k, v in mu.items()}
     jg = jckpt.flatten_named(jgrads)
     assert_leaves_close(grads, jg)
     assert int(new_state.global_step) == 1
@@ -205,7 +206,7 @@ def test_asr_step_matches_jax(setup):
 
 
 def test_unported_options_raise(setup):
-    cfg, _, _ = setup
+    cfg = setup[0]
     lm_cfg = LMConfig()
     for kw in (dict(grad_accum=2), dict(ema_decay=0.9), dict(spec_augment=True),
                dict(freeze=("encoder",)), dict(skip_nonfinite=True),

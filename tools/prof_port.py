@@ -162,10 +162,18 @@ def profile_kernels(params, cfg, dev) -> dict:
     out = {}
     for name, (kernel, plain, cuda_name, n) in kernel_cases(
             params, cfg, dev).items():
-        ev_k = device_events(kernel, n, f"{name}_kernel")
-        mine = [e for e in ev_k if cuda_name in e["name"]]
-        if not mine:
-            raise RuntimeError(f"{name}: no {cuda_name} in the trace")
+        # A profiling session now and then comes back without the kernel's
+        # records (seen once at T=256 after a clean T=512 session): take
+        # up to three sessions before giving up.
+        for attempt in range(3):
+            ev_k = device_events(kernel, n, f"{name}_kernel")
+            mine = [e for e in ev_k if cuda_name in e["name"]]
+            if mine:
+                break
+            print(f"{name}: no {cuda_name} in trace {attempt + 1} "
+                  f"({len(ev_k)} device events); profiling again", flush=True)
+        else:
+            raise RuntimeError(f"{name}: no {cuda_name} in three traces")
         ev_p = device_events(plain, n, f"{name}_plain")
         row = {"device_us": sum(e["dur"] for e in mine) / n,
                "plain_device_us": sum(e["dur"] for e in ev_p) / n,
