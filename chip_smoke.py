@@ -19,6 +19,9 @@ Phases; any failure exits nonzero and prints no result line:
      encoder layer 1 (T=384, B=128, H=256; beside cuDNN's nn.LSTM), the
      decoder's training forward and backward (B=128, 47 steps, 48 encoder
      frames, scheduled sampling and dropout on);
+   - the LM task's kernels at its shape (B=128, T=120 input steps, lengths
+     24-120, H=256): kernel #3 in its inference, masked and training forms
+     and its backward #5, beside cuDNN's unidirectional nn.LSTM;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -31,33 +34,58 @@ Phases; any failure exits nonzero and prints no result line:
    CPU must agree: the loss, every gradient leaf and the params after the
    step; (b) three asr_steps at the bench's train shape B=128, T=384,
    L=48, every loss finite and every training kernel launched; (c) the
-   step time and frames/s.
-The line before the last is a JSON object with the per-kernel numbers; the
-last line is {"ok": true, "device": {...}}. float32 throughout, TF32 off.
+   step time and frames/s;
+   then the LM task and the phone multitask: (a) one lm_step at B=16 on the
+   card and on the CPU (same params, batch and dropout mask) must agree
+   (loss, gradients, params after), and every leaf the LM does not share
+   must keep its bits on the card; (b) three asr_steps of the char + phone
+   model (phone decoder on encoder layer 3) at B=128, T=384, L=48 and
+   three lm_steps at B=128, T=120, every loss finite, kernels #3 and #5
+   launched by the LM step and #8/#9 by both decoders; (c) their step
+   times, frames/s and tokens/s;
+6. recipe: a synthetic corpus at the flagship shape (384 training and 64
+   dev utterances of 24-47 tokens, 8 frames a token, char and phone
+   labels; 256 LM sequences of up to 120 characters) trained by the
+   port's Trainer at the flagship widths (char + phone, lm_prob 0.5, one
+   bucket of 128, two epochs, a checkpoint cadence every 3 ASR steps: dev
+   greedy WER, LR policy, saves); a second Trainer on the same directory
+   must resume the saved step's state. Fails on a non-finite loss, a
+   missing checkpoint, a failed resume or a kernel of the path not
+   launched.
+Each main-path run (serving, ASR training, LM + multitask, recipe) counts
+its kernels' launches from zero; a row's `launches` in the kernels line is
+their sum over those runs. The line before the last is a JSON object with
+the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
+float32 throughout, TF32 off.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.config import (BeamConfig, DecoderConfig,
-                                      EncoderConfig, LMConfig, Seq2SeqConfig)
-from e2e_asr_tpu_torch.core import cells
+                                      EncoderConfig, ExperimentConfig,
+                                      LMConfig, Seq2SeqConfig, TrainConfig)
+from e2e_asr_tpu_torch.core import cells, checkpoint
 from e2e_asr_tpu_torch.core.checkpoint import named_from_params, to_device
 from e2e_asr_tpu_torch.core.layers import dropout_mask
+from e2e_asr_tpu_torch.data import synth
 from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
 from e2e_asr_tpu_torch.eval import beam_eval
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
 from e2e_asr_tpu_torch.kernels import (beam_select, build, dec_step,
-                                       dec_train, lstm_bidir)
+                                       dec_train, lstm_bidir, lstm_seq)
 from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
 from e2e_asr_tpu_torch.train import step
+from e2e_asr_tpu_torch.train.loop import Trainer
 
 # Tolerances against the plain version on the card: forward values of order
 # 1 take 1e-4 absolute (float32 sums in another order); gradients, whose
@@ -65,11 +93,15 @@ from e2e_asr_tpu_torch.train import step
 # largest value; the selection is exact.
 TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "beam_select": 0.0, "lstm_bidir_train": 1e-4, "lstm_bidir_bwd": 1e-4,
-       "lstm_bwd": 1e-4, "dec_train_fwd": 1e-4, "dec_train_bwd": 1e-4}
-RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd"}
+       "lstm_bwd": 1e-4, "dec_train_fwd": 1e-4, "dec_train_bwd": 1e-4,
+       "lstm_seq": 1e-4, "lstm_seq_masked": 1e-4, "lstm_seq_train": 1e-4,
+       "lstm_bwd_lm": 1e-4}
+RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm"}
 NEAR_TIE = 1e-3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 384, 48  # the bench's train shape
+LM_B, LM_T = 128, 120     # lm_batch_size; input steps (the char max_output)
+PHONE_VOCAB = 46          # data/synth.py's phone vocabulary
 
 
 def fail(msg: str):
@@ -111,15 +143,26 @@ def bound(flops: float, moved: int) -> tuple[float, str]:
             else (bytes_ms, "bytes"))
 
 
-def flagship_cfg():
+def flagship_cfg(char_vocab: int = 40, phone_vocab: int | None = None):
+    """The flagship model; with phone_vocab, the recipe's char + phone
+    multitask (a phone decoder of the same widths on encoder layer 3, the
+    `-nlp` default)."""
+    def dec(vocab, max_output):
+        return DecoderConfig(hidden_size_dec=256, emb_size=256,
+                             vocab_size=vocab, lm_hidden_size=256,
+                             attention_vec_size=128, max_output=max_output)
+
+    tasks, layers, out = ["char"], {"char": 4}, {"char": 120}
+    decoders = {"char": dec(char_vocab, 120)}
+    if phone_vocab is not None:
+        tasks.append("phone")
+        layers["phone"], out["phone"] = 3, 250
+        decoders["phone"] = dec(phone_vocab, 250)
     return Seq2SeqConfig(
-        tasks=["char"], num_layers={"char": 4}, max_output={"char": 120},
+        tasks=tasks, num_layers=layers, max_output=out,
         encoder=EncoderConfig(hidden_size=256, skip_step=2,
                               max_scaling_down=8),
-        decoders={"char": DecoderConfig(
-            hidden_size_dec=256, emb_size=256, vocab_size=40,
-            lm_hidden_size=256, attention_vec_size=128, max_output=120)},
-        feat_length=80)
+        decoders=decoders, avg=True, feat_length=80)
 
 
 class Recorder:
@@ -403,6 +446,69 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
             inputs + nbytes(dlog, *got) + saves))
 
 
+def lm_batch(rng, B: int, V: int):
+    """An LM batch as data/lm.py gives one, time-major: ids [LM_T + 1, B]
+    from <go> with 24-LM_T tokens (the last <eos>), their counts, and the
+    rows' validity."""
+    lens = rng.integers(24, LM_T + 1, size=B)
+    lens[0] = LM_T
+    ids = np.zeros((LM_T + 1, B), np.int32)
+    ids[0] = GO_ID
+    for b, n in enumerate(lens):
+        ids[1:n, b] = rng.integers(3, V, size=n - 1)
+        ids[n, b] = EOS_ID
+    return ids, lens.astype(np.int32), np.ones(B, np.float32)
+
+
+def check_lm_kernels(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, the LM task's kernels at its shape: #3 (inference, masked,
+    training forms) and its backward #5 over the char decoder's LM cell
+    (B=128, T=120, lengths 24-120, H=256), beside cuDNN's nn.LSTM."""
+    rng = np.random.default_rng(7)
+    rand = lambda *s: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32), device=dev)
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    T, B, H, E = LM_T, LM_B, dcfg.lm_hidden_size, dcfg.emb_size
+    ids, lens, _ = lm_batch(rng, B, dcfg.vocab_size)
+    lm = dec["lm_cell"]
+    with torch.no_grad():
+        emb_in = dec["embedding"][torch.tensor(ids[:-1], device=dev).long()]
+        xp = cells.lstm_precompute_inputs(lm, emb_in, E).contiguous()
+    w = lm["kernel"][E:]
+    mask = (torch.arange(T, device=dev)[:, None] < torch.tensor(
+        lens, device=dev)[None, :]).float()[:, :, None]
+    lens_cpu = torch.tensor(lens)
+    ops = T * B * 2 * H * 4 * H            # one [H, 4H] product a row-step
+    src = "e2e_asr_tpu_torch/csrc/lstm_seq.cu"
+    pallas = "e2e_asr_tpu/ops/lstm_pallas.py:438"
+    cudnn = lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, False)  # noqa
+    with torch.no_grad():
+        for name, m in (("lstm_seq", None), ("lstm_seq_masked", mask)):
+            got = [lstm_seq.lstm_seq(xp, w, m)]
+            record(name, src, pallas, got,
+                   [lstm_seq.lstm_seq_reference(xp, w, m)],
+                   lambda m=m: lstm_seq.lstm_seq(xp, w, m),
+                   lambda m=m: lstm_seq.lstm_seq_reference(xp, w, m), 20, 2,
+                   (ops, nbytes(xp, w, m, *got)), cudnn)
+        fwd = lstm_seq.lstm_seq_train(xp, w)
+        record("lstm_seq_train", src, pallas, fwd,
+               lstm_seq.lstm_seq_reference(xp, w, save_c=True),
+               lambda: lstm_seq.lstm_seq_train(xp, w),
+               lambda: lstm_seq.lstm_seq_reference(xp, w, save_c=True), 20,
+               2, (ops, nbytes(xp, w, *fwd)), cudnn)
+    h, c = fwd
+    g = rand(T, B, H)
+    bw_args = (w, h, c, xp, g)
+    got = lstm_bidir.lstm_bwd(*bw_args)
+    record("lstm_bwd_lm", "e2e_asr_tpu_torch/csrc/lstm_bidir_bwd.cu",
+           "e2e_asr_tpu/ops/lstm_pallas.py:975", got,
+           lstm_bidir.lstm_bwd_reference(*bw_args),
+           lambda: lstm_bidir.lstm_bwd(*bw_args),
+           lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 10, 1,
+           (3 * ops, nbytes(*bw_args, *got)),
+           lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True))
+
+
 def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
     """Phase 4a: 24 requests through the batching engine."""
     rng = np.random.default_rng(2)
@@ -501,36 +607,69 @@ def compare_cpu(params, cfg, feats) -> None:
           f"{float((sc_g - sc_c).abs().max()):.3e}", flush=True)
 
 
-TRAIN_KERNELS = {"lstm_bidir_train": ("lstm_bidir", "TRAIN_LAUNCHES"),
-                 "lstm_bidir_bwd": ("lstm_bidir", "BWD_LAUNCHES"),
-                 "lstm_bwd": ("lstm_bidir", "BWD_SINGLE_LAUNCHES"),
-                 "dec_train_fwd": ("dec_train", "FWD_LAUNCHES"),
-                 "dec_train_bwd": ("dec_train", "BWD_LAUNCHES")}
-# lstm_bwd, the single-direction entry of A's backward (#5's function), is
-# held to its plain version in phase 3; the training path takes both
-# directions in one launch (lstm_bidir_bwd) and never calls it.
+# Each kernel row's launch counter (module, name). lstm_bwd and lstm_bwd_lm
+# are kernel #5 at the ASR and the LM shape: one counter.
+COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
+            "cells_fused": (dec_step, "CELLS_LAUNCHES"),
+            "output_fused": (dec_step, "OUTPUT_LAUNCHES"),
+            "beam_select": (beam_select, "LAUNCHES"),
+            "lstm_bidir_train": (lstm_bidir, "TRAIN_LAUNCHES"),
+            "lstm_bidir_bwd": (lstm_bidir, "BWD_LAUNCHES"),
+            "lstm_bwd": (lstm_bidir, "BWD_SINGLE_LAUNCHES"),
+            "dec_train_fwd": (dec_train, "FWD_LAUNCHES"),
+            "dec_train_bwd": (dec_train, "BWD_LAUNCHES"),
+            "lstm_seq": (lstm_seq, "LAUNCHES"),
+            "lstm_seq_masked": (lstm_seq, "MASKED_LAUNCHES"),
+            "lstm_seq_train": (lstm_seq, "TRAIN_LAUNCHES"),
+            "lstm_bwd_lm": (lstm_bidir, "BWD_SINGLE_LAUNCHES")}
+# The kernels each main path must launch. The ASR step takes both
+# directions of A's backward in one launch (lstm_bidir_bwd), never
+# lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
+SERVING_PATH = ("lstm_bidir", "cells_fused", "output_fused", "beam_select")
 TRAIN_PATH = ("lstm_bidir_train", "lstm_bidir_bwd", "dec_train_fwd",
               "dec_train_bwd")
-MODULES = {"lstm_bidir": lstm_bidir, "dec_train": dec_train}
+LM_PATH = ("lstm_seq_train", "lstm_bwd")
+RECIPE_PATH = TRAIN_PATH + LM_PATH + ("lstm_bidir", "cells_fused",
+                                      "output_fused")
+
+
+def zero_launches() -> None:
+    for module, counter in COUNTERS.values():
+        setattr(module, counter, 0)
+
+
+def read_launches(path: str, required) -> dict:
+    """Every counter after a main-path run; fails if a kernel the path
+    must launch was not launched."""
+    launches = {name: getattr(m, c) for name, (m, c) in COUNTERS.items()}
+    print(f"launches in the {path} run: {json.dumps(launches)}", flush=True)
+    for name in required:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the {path} path")
+    return launches
 
 
 def train_batch(rng, B: int, cfg) -> dict:
     """B utterances of up to TRAIN_T frames with transcripts of up to
-    TRAIN_L - 1 characters (ending in <eos>), random from `rng`."""
-    T, L, V = TRAIN_T, TRAIN_L, cfg.decoders["char"].vocab_size
+    TRAIN_L - 1 tokens of each task (ending in <eos>), random from `rng`."""
+    T, L = TRAIN_T, TRAIN_L
     lens = rng.integers(T // 2, T + 1, size=B)
     lens[0] = T
-    char_len = rng.integers(L // 2, L, size=B)
-    char_len[0] = L - 1
-    char = np.zeros((B, L), np.int64)
-    char[:, 0] = GO_ID
-    for i, n in enumerate(char_len):
-        char[i, 1:n] = rng.integers(3, V, size=n - 1)
-        char[i, n] = EOS_ID
+    batch = {"logmel_len": lens}
+    for task in cfg.tasks:
+        V = cfg.decoders[task].vocab_size
+        task_len = rng.integers(L // 2, L, size=B)
+        task_len[0] = L - 1
+        ids = np.zeros((B, L), np.int64)
+        ids[:, 0] = GO_ID
+        for i, n in enumerate(task_len):
+            ids[i, 1:n] = rng.integers(3, V, size=n - 1)
+            ids[i, n] = EOS_ID
+        batch[task], batch[f"{task}_len"] = ids, task_len
     feats = rng.normal(size=(B, T, cfg.feat_length)).astype(np.float32)
     feats[np.arange(T)[None, :] >= lens[:, None]] = 0.0
-    return {"logmel": feats, "logmel_len": lens, "char": char,
-            "char_len": char_len}
+    batch["logmel"] = feats
+    return batch
 
 
 def compare_train_step(cfg, dev, lm_cfg) -> None:
@@ -549,7 +688,7 @@ def compare_train_step(cfg, dev, lm_cfg) -> None:
         t = -(-t // cfg.encoder.skip_step) if reduce else t
     noise = {"encoder": masks, "char": attn_decoder.train_noise(
         gen, dcfg, TRAIN_L - 1, B, "cpu")}
-    runs = {}
+    runs = []
     for where in ("cpu", dev):
         asr_step, _ = step.make_train_step(cfg, lm_cfg, device=where)
         state = step.create_state(params, cfg, lm_cfg, device=where)
@@ -557,17 +696,23 @@ def compare_train_step(cfg, dev, lm_cfg) -> None:
         loss, _, grads = asr_step.loss_and_grads(state.params, batch, None,
                                                  noise)
         new_state, _ = asr_step(state, batch, None, noise)
-        runs[str(where)] = (float(loss), named_from_params(grads),
-                            named_from_params(new_state.params))
+        runs.append((float(loss), named_from_params(grads),
+                     named_from_params(new_state.params)))
         print(f"asr_step B={B} on {where}: loss {float(loss):.6f}, "
               f"{time.monotonic() - t0:.2f} s", flush=True)
-    (loss_c, g_c, p_c), (loss_g, g_g, p_g) = runs["cpu"], runs[str(dev)]
+    compare_runs("asr_step", B, *runs)
+
+
+def compare_runs(what: str, B: int, cpu_run, card_run) -> None:
+    """Hold a step on the card to the same step on the CPU: runs of (loss,
+    named gradients, named params after the step)."""
+    (loss_c, g_c, p_c), (loss_g, g_g, p_g) = cpu_run, card_run
     # Tolerances: loss 1e-5 relative; gradients 1e-3 relative to each
     # leaf's largest value (sums over 384-step recurrences in other
     # orders); params 1e-5 (1% of one Adam step at lr 1e-3) where |g| is
     # above 1% of its leaf's largest.
     if not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
-        fail(f"loss on the card {loss_g} vs the CPU {loss_c}")
+        fail(f"{what}: loss on the card {loss_g} vs the CPU {loss_c}")
     worst_g = worst_p = 0.0
     for name, w in g_c.items():
         scale = max(float(np.abs(w).max()), 1e-12)
@@ -576,12 +721,12 @@ def compare_train_step(cfg, dev, lm_cfg) -> None:
         if big.any():
             worst_p = max(worst_p, float(np.abs(p_g[name][big]
                                                 - p_c[name][big]).max()))
-    print(f"card vs CPU at B={B}: loss {loss_g:.6f} vs {loss_c:.6f}; "
+    print(f"{what} card vs CPU at B={B}: loss {loss_g:.6f} vs {loss_c:.6f}; "
           f"gradients max error {worst_g:.3e} of each leaf's largest "
           f"(tolerance 1e-3); params after the step max error "
           f"{worst_p:.3e} (tolerance 1e-5)", flush=True)
     if not (worst_g <= 1e-3 and worst_p <= 1e-5):
-        fail("the card's asr_step disagrees with the CPU's")
+        fail(f"the card's {what} disagrees with the CPU's")
 
 
 def train(cfg, dev, card: str) -> dict:
@@ -596,8 +741,7 @@ def train(cfg, dev, card: str) -> dict:
     batch = train_batch(np.random.default_rng(6), TRAIN_B, cfg)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     gen = torch.Generator(device=dev).manual_seed(6)
-    for module, counter in TRAIN_KERNELS.values():
-        setattr(MODULES[module], counter, 0)
+    zero_launches()
     times, losses = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -606,8 +750,7 @@ def train(cfg, dev, card: str) -> dict:
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {name: getattr(MODULES[m], c)
-                for name, (m, c) in TRAIN_KERNELS.items()}
+    launches = read_launches("ASR training", TRAIN_PATH)
     if not all(np.isfinite(losses)) or int(state.global_step) != 3:
         fail(f"training losses {losses}, global_step "
              f"{int(state.global_step)}")
@@ -618,10 +761,186 @@ def train(cfg, dev, card: str) -> dict:
           f"steady step {steady * 1e3:.2f} ms, {frames / steady:.0f} "
           f"frames/s ({TRAIN_B * TRAIN_T / steady:.0f} padded frames/s)",
           flush=True)
-    print(f"launches in the training run: {json.dumps(launches)}")
-    for name in TRAIN_PATH:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the training path")
+    return launches
+
+
+TIED = ("decoder_char/lm_cell/", "decoder_char/output_proj/",
+        "decoder_char/embedding")   # the leaves the LM shares
+
+
+def compare_lm_step(cfg, dev, lm_cfg) -> None:
+    """Phase 5 (LM) a: one lm_step at B=16 on the card and on the CPU, same
+    params, batch (a padded tail row among them) and dropout mask; on the
+    card every leaf the LM does not share keeps its bits."""
+    B = 16
+    ids, lens, valid = lm_batch(np.random.default_rng(8), B,
+                                cfg.decoders["char"].vocab_size)
+    valid[-1] = 0.0
+    gen = torch.Generator().manual_seed(8)
+    params = seq2seq.init(gen, cfg, device="cpu")
+    noise = dropout_mask(gen, (LM_T, B, cfg.decoders["char"].lm_hidden_size),
+                         lm_cfg.out_prob, "cpu")
+    before = named_from_params(params)
+    runs = []
+    for where in ("cpu", dev):
+        _, lm_step = step.make_train_step(cfg, lm_cfg, device=where)
+        state = step.create_state(params, cfg, lm_cfg, device=where)
+        t0 = time.monotonic()
+        loss, grads = lm_step.loss_and_grads(state.params, ids, lens, None,
+                                             valid, noise)
+        new_state, _ = lm_step(state, ids, lens, None, valid, noise)
+        runs.append((float(loss), named_from_params(grads),
+                     named_from_params(new_state.params)))
+        print(f"lm_step B={B} on {where}: loss {float(loss):.6f}, "
+              f"{time.monotonic() - t0:.2f} s", flush=True)
+    compare_runs("lm_step", B, *runs)
+    after = runs[1][2]
+    moved = {k for k in before if not np.array_equal(after[k], before[k])}
+    tied = {k for k in before if k.startswith(TIED)}
+    print(f"lm_step on the card: {len(moved)} leaves moved (the {len(tied)} "
+          f"tied ones), {len(before) - len(moved)} kept their bits",
+          flush=True)
+    if moved != tied:
+        fail(f"the LM step moved {sorted(moved ^ tied)} against the tying")
+
+
+def timed_steps(run, n: int) -> tuple[list, list]:
+    """n calls of run() -> loss; (losses, host times ending in a sync)."""
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(run()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def train_lm_multitask(dev, card) -> dict:
+    """Phase 5 (LM, multitask): (a) lm_step card vs CPU; (b) three
+    asr_steps of the char + phone model at B=128, T=384, L=48 and three
+    lm_steps at B=128, T=120, counted from zero; (c) their times. Returns
+    the launches of (b)."""
+    cfg = flagship_cfg(40, PHONE_VOCAB)
+    lm_cfg = LMConfig(vocab_size=40)
+    compare_lm_step(cfg, dev, lm_cfg)
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    asr_step, lm_step = step.make_train_step(cfg, lm_cfg, device=dev)
+    holder = {"state": step.create_state(params, cfg, lm_cfg, device=dev)}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(
+        np.random.default_rng(9), TRAIN_B, cfg).items()}
+    ids, lens, valid = (torch.as_tensor(a, device=dev) for a in lm_batch(
+        np.random.default_rng(10), LM_B, 40))
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def one_asr():
+        holder["state"], metrics = asr_step(holder["state"], batch, gen)
+        return metrics["loss"]
+
+    def one_lm():
+        holder["state"], metrics = lm_step(holder["state"], ids, lens, gen,
+                                           valid)
+        return metrics["lm_loss"]
+
+    zero_launches()
+    asr_losses, asr_times = timed_steps(one_asr, 3)
+    lm_losses, lm_times = timed_steps(one_lm, 3)
+    launches = read_launches("LM and multitask", TRAIN_PATH + LM_PATH)
+    state = holder["state"]
+    if not (all(np.isfinite(asr_losses + lm_losses))
+            and int(state.global_step) == 3
+            and int(state.lm_global_step) == 3):
+        fail(f"multitask losses {asr_losses}, LM losses {lm_losses}")
+    if (launches["dec_train_fwd"], launches["dec_train_bwd"]) != (6, 6):
+        fail("the char and phone decoders did not both run kernels #8/#9 "
+             "every step")
+    frames, tokens = int(batch["logmel_len"].sum()), int(lens.sum())
+    asr_s, lm_s = float(np.mean(asr_times[1:])), float(np.mean(lm_times[1:]))
+    print(f"multitask (char + phone) B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
+          f"({card}): losses {asr_losses}; step times "
+          f"{[round(t * 1e3, 2) for t in asr_times]} ms; steady step "
+          f"{asr_s * 1e3:.2f} ms, {frames / asr_s:.0f} frames/s", flush=True)
+    print(f"LM B={LM_B} T={LM_T} ({card}): losses {lm_losses}; step times "
+          f"{[round(t * 1e3, 2) for t in lm_times]} ms; steady step "
+          f"{lm_s * 1e3:.2f} ms, {tokens / lm_s:.0f} tokens/s", flush=True)
+    return launches
+
+
+def recipe(dev, card) -> dict:
+    """Phase 6: train a synthetic corpus at the flagship shape with the
+    port's Trainer, evaluate, save, and resume in a second Trainer.
+    Returns the launches of the training run."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        sizes = synth.make_vocab_dir(os.path.join(root, "vocab"))
+        data = os.path.join(root, "data")
+        os.makedirs(os.path.join(data, "lm"))
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        synth.write_speech_corpus(os.path.join(data, "train_1k.0.0001"), 384,
+                                  seed=0, **utt)
+        synth.write_speech_corpus(os.path.join(data, "dev.0001"), 64, seed=1,
+                                  **utt)
+        synth.write_lm_corpus(os.path.join(data, "lm", "lm.0001"), 256,
+                              seed=2, min_tokens=24, max_tokens=118)
+        print(f"recipe corpus: 384 train, 64 dev utterances, 256 LM "
+              f"sequences written in {time.monotonic() - t0:.1f} s",
+              flush=True)
+        train_cfg = TrainConfig(
+            batch_size=128, buck_batch_size=[128], num_buckets=1,
+            max_epochs=1, min_steps=0, feat_length=80, data_dir=data,
+            lm_data_dir=os.path.join(data, "lm"),
+            vocab_dir=os.path.join(root, "vocab"),
+            train_dir=os.path.join(root, "train"),
+            best_model_dir=os.path.join(root, "best"), lm_prob=0.5,
+            steps_per_checkpoint=3, compute_dtype="float32")
+        cfg = ExperimentConfig(
+            model=flagship_cfg(sizes["char"], sizes["phone"]),
+            train=train_cfg, lm=LMConfig(vocab_size=sizes["char"]))
+        trainer = Trainer(cfg, device=dev)
+        losses = {"asr": [], "lm": []}
+
+        def recording(fn, key, kind):
+            def wrapped(*args, **kw):
+                new_state, metrics = fn(*args, **kw)
+                losses[kind].append(metrics[key])
+                return new_state, metrics
+            return wrapped
+
+        trainer.asr_step = recording(trainer.asr_step, "loss", "asr")
+        trainer.lm_step = recording(trainer.lm_step, "lm_loss", "lm")
+        zero_launches()
+        t0 = time.monotonic()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches("recipe", RECIPE_PATH)
+        asr = [float(x) for x in losses["asr"]]
+        lm = [float(x) for x in losses["lm"]]
+        with open(os.path.join(train_cfg.train_dir, "asr_err.txt")) as f:
+            errs = [float(x) for x in f.read().split()]
+        print(f"recipe ({card}): {int(state.global_step)} ASR steps, "
+              f"{int(state.lm_global_step)} LM steps, "
+              f"{int(state.lm_epoch)} LM epochs; ASR losses "
+              f"{[round(x, 4) for x in asr]}; LM losses "
+              f"{[round(x, 4) for x in lm]}; dev WER {errs}; wall "
+              f"{wall:.1f} s", flush=True)
+        if not (asr and lm and np.isfinite(asr + lm).all()):
+            fail(f"recipe losses: ASR {asr}, LM {lm}")
+        found = checkpoint.restore_latest(train_cfg.train_dir)
+        if found is None or len(errs) != 2 or int(state.global_step) != 6:
+            fail(f"recipe: {len(errs)} dev evaluations, global step "
+                 f"{int(state.global_step)}, checkpoint {found is not None}")
+        named = found[0]
+        second = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+            train_cfg, max_epochs=0)), device=dev)
+        resumed = step.state_to_named(second.train())
+        if not (resumed.keys() == named.keys() and all(
+                np.array_equal(resumed[k], v) for k, v in named.items())):
+            fail("the second Trainer did not resume the saved state")
+        print(f"recipe: checkpoint of step {int(named['global_step'])} "
+              f"written and resumed by a second Trainer ({len(named)} "
+              f"leaves equal)", flush=True)
     return launches
 
 
@@ -662,34 +981,30 @@ def main() -> int:
     with torch.no_grad():
         check_kernels(params, cfg, dev, record)
     check_train_kernels(params, cfg, dev, record)
+    check_lm_kernels(params, cfg, dev, record)
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
                                           for i in range(26)]
     rev_vocab += [f"#{i}" for i in range(40 - len(rev_vocab))]
     with torch.no_grad():
-        lstm_bidir.LAUNCHES = 0
-        dec_step.CELLS_LAUNCHES = dec_step.OUTPUT_LAUNCHES = 0
-        beam_select.LAUNCHES = 0
+        zero_launches()
         feats, texts, stats = serve(params, cfg, dev, rev_vocab)
-        launches = {"lstm_bidir": lstm_bidir.LAUNCHES,
-                    "cells_fused": dec_step.CELLS_LAUNCHES,
-                    "output_fused": dec_step.OUTPUT_LAUNCHES,
-                    "beam_select": beam_select.LAUNCHES}
+        paths = {"serving": read_launches("serving", SERVING_PATH)}
         print(f"serving ({card}): {json.dumps(stats)}")
-        print(f"launches in the serving run: {json.dumps(launches)}")
         print(f"first transcripts: {[t[:60] for t in texts[:3]]}")
         if len(texts) != 24 or not all(isinstance(t, str) for t in texts):
             fail("not every request got a transcript")
-        for name, n in launches.items():
-            if n <= 0:
-                fail(f"kernel {name} was not launched by the serving path")
         compare_cpu(params, cfg, feats)
 
-    # 5. training
-    launches.update(train(cfg, dev, card))
+    # 5. training: the ASR step, then the LM step and the phone multitask
+    paths["asr"] = train(cfg, dev, card)
+    paths["lm_multitask"] = train_lm_multitask(dev, card)
+
+    # 6. recipe
+    paths["recipe"] = recipe(dev, card)
     for row in record.rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"kernels": record.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,14 @@ leaf names of `e2e_asr_tpu.core.checkpoint.flatten_named` load directly
 (`core/checkpoint.py`).
 
 Ported so far: the attention family's serving path (encoder, batched beam
-search, `eval/serving.BatchingTranscriber`) and its ASR train step
-(`train/step.make_train_step`: the training forward with dropout and
-scheduled sampling, gradients through hand-written backward kernels, clip +
-Adam), float32, LSTM cells. Entry points run on the CUDA card unless the
-caller passes device="cpu". What is not ported raises NotImplementedError
-naming its ROADMAP.md item. This package imports neither JAX nor the JAX
-package: it keeps its own copies of the configuration (`config.py`) and
-the vocabulary helpers (`data/text.py`).
+search, `eval/serving.BatchingTranscriber`) and its training recipe: the
+ASR and LM steps (`train/step.make_train_step`: the training forwards with
+dropout and scheduled sampling, gradients through hand-written backward
+kernels, clip + Adam), the phone multitask, greedy dev WER
+(`eval/greedy.GreedyEvaluator`), checkpoints and the driver
+(`train/loop.Trainer`); float32, LSTM cells. Entry points run on the CUDA
+card unless the caller passes device="cpu". What is not ported raises
+NotImplementedError naming its ROADMAP.md item. This package imports
+neither JAX nor the JAX package: it keeps its own copies of what it needs
+from the JAX-free modules (`config.py`, `data/`, `eval/score.py`).
 """

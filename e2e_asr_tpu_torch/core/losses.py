@@ -25,11 +25,13 @@ def shifted_targets(dec_inputs: torch.Tensor, seq_len: torch.Tensor
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       seq_len: torch.Tensor,
-                       label_smoothing: float = 0.0) -> torch.Tensor:
+                       seq_len: torch.Tensor, label_smoothing: float = 0.0,
+                       weights: torch.Tensor | None = None) -> torch.Tensor:
     """Length-normalized masked CE. logits [T, B, V] time-major, targets
     [T, B], seq_len [B]. label_smoothing e makes the target distribution
-    (1-e)*onehot + e/V uniform."""
+    (1-e)*onehot + e/V uniform. weights: optional [B] row validity (the
+    padded rows of a tail batch get 0); the batch mean then runs over the
+    valid rows only."""
     log_probs = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(log_probs, -1, targets.long()[..., None])[..., 0]
     if label_smoothing > 0.0:
@@ -38,4 +40,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     mask = _time_mask(seq_len, targets.shape[0], logits.dtype)
     per_example = torch.sum(nll * mask, dim=0) / torch.clamp(
         seq_len.to(logits.dtype), min=1.0)
+    if weights is not None:
+        w = weights.to(per_example.dtype)
+        return torch.sum(per_example * w) / torch.clamp(torch.sum(w), min=1.0)
     return torch.mean(per_example)

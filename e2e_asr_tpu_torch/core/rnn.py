@@ -5,15 +5,17 @@ Semantics of tf.nn.(bidirectional_)dynamic_rnn, as in the reference:
 - the backward direction of a bidirectional layer sees each example
   reversed within its own length.
 
+`lstm_scan` runs one direction through kernel #3 (kernels/lstm_seq.py).
 The bidirectional LSTM layer flips the whole sequence (padding then leads)
 and runs both directions in one launch of kernel A
 (kernels/lstm_bidir.py), whose backward direction carries its state
 through the leading padding; that equals reversing within each length.
-Gradients flow through the kernel's backward. Training dropout is applied
-to the concatenated output outside the kernel, as the reference does off
-the TPU (its rnn_layer falls back to layers.dropout there).
-`lstm_scan` and `reverse_sequence` are the plain formulation of the same
-thing, kept as the independent oracle the tests hold the layer to.
+Gradients flow through the kernels' backward. Training dropout is applied
+to the layer's output outside the kernels, as the reference does off the
+TPU (its rnn_layer falls back to layers.dropout there).
+`lstm_scan_reference` and `reverse_sequence` are the plain formulation of
+the same thing, kept as the independent oracle the tests hold the layers
+to.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.core.layers import dropout
-from e2e_asr_tpu_torch.kernels import lstm_bidir
+from e2e_asr_tpu_torch.kernels import lstm_bidir, lstm_seq
 
 
 def reverse_sequence(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -41,8 +43,8 @@ def length_mask(lens: torch.Tensor, T: int) -> torch.Tensor:
     return (t < lens.long()[None, :]).float()
 
 
-def lstm_scan(params: dict, x_seq: torch.Tensor, lens: torch.Tensor
-              ) -> torch.Tensor:
+def lstm_scan_reference(params: dict, x_seq: torch.Tensor,
+                        lens: torch.Tensor) -> torch.Tensor:
     """Unidirectional LSTM over x_seq [T, B, F] -> [T, B, H], zeroed past
     lens. Plain PyTorch (one step per time step)."""
     T, B, in_dim = x_seq.shape
@@ -58,27 +60,41 @@ def lstm_scan(params: dict, x_seq: torch.Tensor, lens: torch.Tensor
     return torch.stack(outputs) * length_mask(lens, T)[:, :, None]
 
 
+def lstm_scan(params: dict, x_seq: torch.Tensor, lens: torch.Tensor
+              ) -> torch.Tensor:
+    """Unidirectional LSTM over x_seq [T, B, F] -> [T, B, H], zeroed past
+    lens: the input projection in one matmul, the recurrence in kernel #3
+    (its plain version for CPU tensors)."""
+    T, _, in_dim = x_seq.shape
+    x_proj = cells.lstm_precompute_inputs(params, x_seq, in_dim)
+    out = lstm_seq.lstm_seq(x_proj.contiguous(), params["kernel"][in_dim:])
+    return out * length_mask(lens.to(x_seq.device), T)[:, :, None]
+
+
 def rnn_layer(params: dict, x_seq: torch.Tensor, lens: torch.Tensor, *,
               cell: str = "lstm", bidirectional: bool = True,
               compute_dtype=None, out_dropout=None) -> torch.Tensor:
-    """One bidirectional LSTM layer.
+    """One LSTM layer, bidirectional or forward-only.
 
-    params: {"fw": cell_params, "bw": cell_params}; x_seq [T, B, F]
-    time-major float32; lens [B]. Returns [T, B, 2H] (fw ; bw).
-    out_dropout: (keep_prob, mask) for training, mask a bool [T, B, 2H]
-    keep-mask (tensors that need a gradient take the training form of the
-    kernel and its backward).
+    params: {"fw": cell_params, "bw": cell_params} ({"fw": ...} alone when
+    forward-only); x_seq [T, B, F] time-major float32; lens [B]. Returns
+    [T, B, 2H] (fw ; bw), or [T, B, H] forward-only.
+    out_dropout: (keep_prob, mask) for training, mask a bool keep-mask of
+    the output's shape (tensors that need a gradient take the training form
+    of the kernel and its backward).
     """
     if cell != "lstm":
         raise NotImplementedError("GRU layers are not ported yet "
                                   "(ROADMAP.md Queue 1, 'GRU option')")
-    if not bidirectional:
-        raise NotImplementedError(
-            "forward-only layers need the unidirectional LSTM kernel "
-            "(ROADMAP.md Queue 2, kernel #3)")
     if compute_dtype is not None:
         raise NotImplementedError("bf16 compute is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Decode features')")
+    if not bidirectional:
+        out = lstm_scan(params["fw"], x_seq, lens)
+        if out_dropout is not None:
+            keep, mask = out_dropout
+            out = dropout(out, keep, mask=mask)
+        return out
     T, B, in_dim = x_seq.shape
     lens = lens.to(x_seq.device)
     x_proj_fw = cells.lstm_precompute_inputs(params["fw"], x_seq, in_dim)

@@ -1,8 +1,9 @@
 """Vocabulary constants and the text helpers the port needs: a copy of the
 corresponding part of e2e_asr_tpu/data/text.py (special symbols, the filler
-filter used before WER scoring, ids -> sentence)."""
+filter used before WER scoring, vocabulary files, ids -> sentence)."""
 from __future__ import annotations
 
+import os
 import re
 
 PAD = "<pad>"
@@ -35,6 +36,23 @@ def get_relevant_words(char_str: str) -> tuple[list[str], list[str]]:
     rel = [w for w in words
            if w not in IGNORED_WORDS and not (len(w) > 0 and w[-1] == "-")]
     return words, rel
+
+
+def initialize_vocabulary(path: str) -> tuple[dict[str, int], list[str]]:
+    """One-token-per-line vocab file -> (token->id, id->token)."""
+    if not os.path.isfile(path):
+        raise ValueError(f"Vocabulary file {path} not found.")
+    with open(path, "rb") as f:
+        rev_vocab = [line.strip().decode() for line in f]
+    vocab = {tok: i for i, tok in enumerate(rev_vocab)}
+    return vocab, rev_vocab
+
+
+def write_vocabulary(path: str, tokens: list[str]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for tok in tokens:
+            f.write(tok + "\n")
 
 
 def ids_to_sentence(id_seq, rev_vocab: list[str]) -> str:

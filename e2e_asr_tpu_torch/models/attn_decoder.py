@@ -10,7 +10,8 @@ Per-step structure, order preserved from the reference:
   -> attention over the precomputed W*h_enc with a masked softmax
   -> AttnProjection of [query, context] -> OutputProjection logits.
 The attention query is the top cell's **c** state. At inference the step
-is kernels B and C around `attention` (eval/beam.py). In training,
+is kernels B and C around the attention (eval/beam.py, and the greedy
+`apply_infer_early`). In training,
 `apply_train` runs all steps with scheduled sampling (one coin per step for
 the whole batch, gumbel-max sampling from the previous step's logits) and
 dropout: as the plain scan over `step` on the CPU, and as the fused
@@ -26,7 +27,8 @@ from e2e_asr_tpu_torch.config import DecoderConfig
 from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.core.layers import (dense, dense_params,
                                            glorot_uniform, uniform_init)
-from e2e_asr_tpu_torch.kernels import dec_train
+from e2e_asr_tpu_torch.data.text import EOS_ID
+from e2e_asr_tpu_torch.kernels import dec_step, dec_train
 
 NEG_INF = -1e30
 
@@ -238,3 +240,42 @@ def apply_train(params: dict, cfg: DecoderConfig, dec_inputs: torch.Tensor,
             lm_input = emb[sampled]
         logits_all.append(logits)
     return torch.stack(logits_all)
+
+
+@torch.no_grad()
+def apply_infer_early(params: dict, cfg: DecoderConfig, go_ids: torch.Tensor,
+                      enc_states: torch.Tensor, enc_lens: torch.Tensor, *,
+                      max_output: int, eos_id: int = EOS_ID
+                      ) -> torch.Tensor:
+    """Greedy decode with batch-wide early exit: argmax feedback from
+    go_ids [B] until every row has emitted <eos> or max_output steps ran.
+    Positions past a row's <eos> are <pad>. Returns ids [max_output, B].
+
+    A step is kernel B (dec_step.cells_fused), the additive attention and
+    kernel C (dec_step.output_fused, log-probs, argmax-equal to the
+    logits), as the reference's fused inference step; their plain versions
+    run for CPU tensors."""
+    check_supported(cfg)
+    B = go_ids.shape[0]
+    emb = params["embedding"]
+    ctx = make_attn_context(params, enc_states, enc_lens)
+    state = zero_state(cfg, B, ctx)
+    lm_input = emb[go_ids.long()]
+    done = torch.zeros(B, dtype=torch.bool, device=emb.device)
+    out = torch.zeros(max_output, B, dtype=torch.long, device=emb.device)
+    for t in range(max_output):
+        new_lm, new_dec, y = dec_step.cells_fused(
+            params, lm_input, state.context, state.lm_state,
+            state.cell_states)
+        query = new_dec[-1].c
+        context, alpha = alpha_context(params, ctx, y[:, None, :])
+        context = context[:, 0].contiguous()
+        logp = dec_step.output_fused(params, cfg, query, context)
+        ids = torch.where(done, 0, torch.argmax(logp, dim=-1))
+        out[t] = ids
+        done = done | (ids == eos_id)
+        state = DecState(new_dec, new_lm, context, alpha[:, 0])
+        lm_input = emb[ids]
+        if bool(done.all()):
+            break
+    return out

@@ -30,8 +30,8 @@ def _check_supported(cfg: EncoderConfig) -> None:
                                   "(ROADMAP.md Queue 1, 'GRU option')")
     if not cfg.bi_dir:
         raise NotImplementedError(
-            "forward-only encoders need the unidirectional LSTM kernel "
-            "(ROADMAP.md Queue 2, kernel #3)")
+            "forward-only encoders are not ported yet (ROADMAP.md Queue 1, "
+            "'Frontend')")
 
 
 def layer_plan(cfg: EncoderConfig, max_depth: int) -> list[bool]:

@@ -1,5 +1,6 @@
 """Seq2seq assembly: encoder + one attention decoder per task (port of
-e2e_asr_tpu/models/seq2seq.py): init, encode and the training forward."""
+e2e_asr_tpu/models/seq2seq.py): init, encode, the training forward and the
+greedy decode."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +8,7 @@ import torch
 from e2e_asr_tpu_torch.config import Seq2SeqConfig
 from e2e_asr_tpu_torch.core import losses
 from e2e_asr_tpu_torch.core.device import resolve
+from e2e_asr_tpu_torch.data.text import GO_ID
 from e2e_asr_tpu_torch.models import attn_decoder, encoder
 
 
@@ -101,6 +103,24 @@ def apply_train(params: dict, cfg: Seq2SeqConfig, batch: dict, *,
     if cfg.avg:
         total = total / float(len(cfg.tasks))
     return total, task_losses
+
+
+@torch.no_grad()
+def apply_greedy(params: dict, cfg: Seq2SeqConfig, feats: torch.Tensor,
+                 feat_lens: torch.Tensor, *, task: str = "char",
+                 go_id: int = GO_ID) -> torch.Tensor:
+    """Greedy decode of a batch with early exit (attn_decoder.
+    apply_infer_early): token ids [B, max_output], <pad> past each row's
+    <eos>. feats [B, T, feat] on the parameters' device."""
+    check_supported(cfg)
+    attn_states, _, enc_lens = encode(params, cfg, feats, feat_lens)
+    depth = cfg.num_layers[task]
+    go_ids = torch.full((feats.shape[0],), go_id, dtype=torch.long,
+                        device=feats.device)
+    ids = attn_decoder.apply_infer_early(
+        params[f"decoder_{task}"], cfg.decoders[task], go_ids,
+        attn_states[depth], enc_lens[depth], max_output=cfg.max_output[task])
+    return ids.transpose(0, 1)
 
 
 def param_count(params) -> int:

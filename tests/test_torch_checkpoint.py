@@ -3,12 +3,14 @@ parameters from the JAX package's named leaves (`flatten_named`) and from
 its `.npz` checkpoints, strictly, and the port's own init has the JAX
 init's layout. Leaves must be equal bit for bit.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from e2e_asr_tpu.core import checkpoint as jckpt
+from e2e_asr_tpu.models import seq2seq as jseq2seq
 from e2e_asr_tpu_torch.core import checkpoint
 from e2e_asr_tpu_torch.models import seq2seq
 from tests.test_torch_slice import setup  # noqa: F401  (shared fixture)
@@ -51,9 +53,12 @@ def test_load_npz_reads_a_jax_checkpoint(setup, train_state):
 
 
 def test_port_init_matches_jax_layout(setup):
-    cfg, _, _, named, _ = setup
+    cfg = setup[0]
     port = checkpoint.flatten_named(
         seq2seq.init(torch.Generator().manual_seed(1), cfg,
                      device="cpu"))
+    flat = jax.tree_util.tree_flatten_with_path(jax.eval_shape(
+        lambda: jseq2seq.init(jax.random.PRNGKey(0), cfg)))[0]
     assert {k: tuple(v.shape) for k, v in port.items()} == {
-        k: v.shape for k, v in named.items()}
+        "/".join(jckpt._key_name(k) for k in path): leaf.shape
+        for path, leaf in flat}

@@ -1,10 +1,10 @@
 """The port's own copies of what it needs from the JAX package's JAX-free
 modules stay in step with them, and its entry points default to the card.
 
-- config dataclasses: same field names, defaults and order as
-  e2e_asr_tpu/config.py;
+- config dataclasses (the training and experiment ones included): same
+  field names, defaults and order as e2e_asr_tpu/config.py;
 - vocabulary constants and text helpers: same values and results as
-  e2e_asr_tpu/data/text.py;
+  e2e_asr_tpu/data/text.py, vocabulary files included;
 - without a CUDA device, the entry points that default to the card raise
   unless the caller passes device="cpu".
 """
@@ -19,12 +19,13 @@ import e2e_asr_tpu.data.text as jtext
 from e2e_asr_tpu_torch import config
 from e2e_asr_tpu_torch.core import checkpoint
 from e2e_asr_tpu_torch.data import text
+from e2e_asr_tpu_torch.eval import greedy
 from e2e_asr_tpu_torch.models import seq2seq
-from e2e_asr_tpu_torch.train import step
+from e2e_asr_tpu_torch.train import loop, step
 
 torch.set_num_threads(1)
 CLASSES = ("EncoderConfig", "DecoderConfig", "LMConfig", "Seq2SeqConfig",
-           "BeamConfig")
+           "BeamConfig", "TrainConfig", "ExperimentConfig")
 
 
 def _fields(cls):
@@ -45,14 +46,22 @@ def test_config_copy_matches_the_jax_package():
     for name in CLASSES:
         assert _fields(getattr(config, name)) == _fields(
             getattr(jconfig, name)), name
-    assert (dataclasses.asdict(config.Seq2SeqConfig())
-            == dataclasses.asdict(jconfig.Seq2SeqConfig()))
+    for name in ("Seq2SeqConfig", "ExperimentConfig"):
+        assert (dataclasses.asdict(getattr(config, name)())
+                == dataclasses.asdict(getattr(jconfig, name)())), name
 
 
-def test_text_copy_matches_the_jax_package():
+def test_text_copy_matches_the_jax_package(tmp_path):
     for name in ("PAD", "GO", "EOS", "START_VOCAB", "PAD_ID", "GO_ID",
                  "EOS_ID", "IGNORED_WORDS"):
         assert getattr(text, name) == getattr(jtext, name), name
+    tokens = text.START_VOCAB + ["▁", "a", "<sp>"]
+    text.write_vocabulary(str(tmp_path / "port" / "v"), tokens)
+    jtext.write_vocabulary(str(tmp_path / "jax" / "v"), tokens)
+    assert ((tmp_path / "port" / "v").read_bytes()
+            == (tmp_path / "jax" / "v").read_bytes())
+    assert (text.initialize_vocabulary(str(tmp_path / "port" / "v"))
+            == jtext.initialize_vocabulary(str(tmp_path / "port" / "v")))
     rev = text.START_VOCAB + ["<sp>", "a", "b", "!", "▁", "u", "h", "-"]
     for ids in ([3, 4, 5, 2, 4], [4, 7, 3, 4, 8, 9, 0, 5], [4, 10, 9, 3, 11]):
         sent = text.ids_to_sentence(ids, rev)
@@ -75,10 +84,15 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     named = checkpoint.named_from_params(params)
     path = str(tmp_path / "p.npz")
     np.savez(path, **named)
+    exp = config.ExperimentConfig(model=cfg, train=config.TrainConfig(
+        compute_dtype="float32", train_dir=str(tmp_path),
+        best_model_dir=str(tmp_path)))
     for call in (lambda: checkpoint.params_from_named(named, cfg),
                  lambda: checkpoint.load_npz(path, cfg),
                  lambda: step.create_state(params, cfg, lm_cfg),
-                 lambda: step.make_train_step(cfg, lm_cfg)):
+                 lambda: step.make_train_step(cfg, lm_cfg),
+                 lambda: greedy.GreedyEvaluator(cfg, ["a"], str(tmp_path)),
+                 lambda: loop.Trainer(exp)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     back = checkpoint.load_npz(path, cfg, device="cpu")
@@ -87,3 +101,5 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     state = step.create_state(params, cfg, lm_cfg, device="cpu")
     assert int(state.global_step) == 0
     step.make_train_step(cfg, lm_cfg, device="cpu")
+    greedy.GreedyEvaluator(cfg, ["a"], str(tmp_path), device="cpu")
+    loop.Trainer(exp, device="cpu")

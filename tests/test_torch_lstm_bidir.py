@@ -84,9 +84,10 @@ def test_rnn_layer_equals_reverse_within_length_scan():
     tp = jax.tree_util.tree_map(torch.tensor, params)
     x, lens = torch.tensor(x), torch.tensor(lens)
     got = rnn.rnn_layer(tp, x, lens)
-    fw = rnn.lstm_scan(tp["fw"], x, lens)
+    fw = rnn.lstm_scan_reference(tp["fw"], x, lens)
     bw = rnn.reverse_sequence(
-        rnn.lstm_scan(tp["bw"], rnn.reverse_sequence(x, lens), lens), lens)
+        rnn.lstm_scan_reference(tp["bw"], rnn.reverse_sequence(x, lens),
+                                lens), lens)
     torch.testing.assert_close(got, torch.cat([fw, bw], -1), atol=ATOL,
                                rtol=0)
     want_rev = jrnn.reverse_sequence(jnp.asarray(x.numpy()),

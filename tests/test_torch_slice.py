@@ -1,5 +1,5 @@
-"""Port parity for the whole serving slice on the CPU: JAX-initialized
-weights carried into the port by name (the `setup` fixture, which
+"""Port parity for the whole serving slice on the CPU: the same weights in
+both packages, carried across by name (the `setup` fixture, which
 tests/test_torch_checkpoint.py shares), then the encoder, the beam decoder
 and the batching engine of both packages on the same inputs.
 
@@ -8,7 +8,6 @@ scores 1e-4 (sums of up to 16 float32 log-probs); transcripts equal.
 """
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ from e2e_asr_tpu_torch.core import checkpoint
 from e2e_asr_tpu_torch.eval import beam_eval, serving
 from e2e_asr_tpu_torch.models import seq2seq
 from tests.test_e2e import small_model_cfg
+from tests.test_torch_train_step import init_both
 
 torch.set_num_threads(1)
 
@@ -36,8 +36,7 @@ def setup(tmp_path_factory):
     _, rev_vocab = text.initialize_vocabulary(
         str(root / "vocab" / "char.vocab"))
     cfg = small_model_cfg(sizes["char"])
-    jparams = jseq2seq.init(jax.random.PRNGKey(0), cfg)
-    named = jckpt.flatten_named(jparams)
+    jparams, named = init_both(cfg, 0)
     return cfg, rev_vocab, jparams, named, root
 
 

@@ -21,14 +21,14 @@ import torch
 from e2e_asr_tpu.core import checkpoint as jckpt
 from e2e_asr_tpu.core import rnn as jrnn
 from e2e_asr_tpu.models import attn_decoder as jdec
-from e2e_asr_tpu.models import seq2seq as jseq2seq
 from e2e_asr_tpu.ops import lstm_pallas
 from e2e_asr_tpu_torch.core import checkpoint, rnn
 from e2e_asr_tpu_torch.kernels import dec_train, lstm_bidir
 from e2e_asr_tpu_torch.models import attn_decoder
 from tests.test_torch_lstm_bidir import _kernel_inputs, _layer_inputs
 from tests.test_torch_train_step import (B, L, V, assert_leaves_close,
-                                         make_batch, train_cfg)
+                                         init_both, make_batch, quick_jit,
+                                         train_cfg)
 
 torch.set_num_threads(1)
 
@@ -109,7 +109,7 @@ def decoder_case():
     sum w.r.t. the decoder weights and the encoder states."""
     cfg = train_cfg()
     dcfg = cfg.decoders["char"]
-    jparams = jax.jit(lambda k: jseq2seq.init(k, cfg))(jax.random.PRNGKey(3))
+    jparams, named = init_both(cfg, 3)
     rng = np.random.default_rng(2)
     enc = rng.normal(size=(B, 7, 16)).astype(np.float32)
     enc_lens = np.array([7, 4, 2], np.int32)
@@ -122,12 +122,12 @@ def decoder_case():
                                jnp.asarray(enc_lens), rng=key)
         return jnp.sum(out * w), out
 
-    (_, logits), (gp, ge) = jax.jit(jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True))(jparams["decoder_char"],
-                                              jnp.asarray(enc))
+    args = (jparams["decoder_char"], jnp.asarray(enc))
+    (_, logits), (gp, ge) = quick_jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True), *args)(*args)
     noise = jdec.train_noise(key, dcfg, L - 1, B)
     assert float(noise[0].sum()) > 0           # sampling fires
-    return (cfg, jckpt.flatten_named(jparams), enc, enc_lens, ids, w, noise,
+    return (cfg, named, enc, enc_lens, ids, w, noise,
             logits, jckpt.flatten_named(gp), ge)
 
 

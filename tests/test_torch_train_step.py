@@ -1,12 +1,14 @@
 """Port parity for the training slice on the CPU: the loss, clip + Adam
 and the whole ASR step of the port against the JAX package (the decoder's
 training pass and kernel A's backward are in test_torch_train_kernels.py),
-on JAX-initialized weights carried across by name and the same noise (JAX's
-own, rebuilt from its keys and handed to the port).
+on the same weights (the port's init, carried across by name) and the same
+noise (JAX's own, drawn from its keys and handed to the port).
 
-The configuration is the flagship's at a small width: a 2-layer pyramidal
-BiLSTM encoder (H=8), a 1-layer LSTM attention decoder, V=9, B=3, T=16
-frames, L=6; dropout (keep 0.8 / 0.7) and scheduled sampling (0.5) on.
+The configuration is the recipe's at a small width: a 2-layer pyramidal
+BiLSTM encoder (H=8), a 1-layer LSTM attention decoder for the characters
+(V=9, L=6) on layer 2 and one for the phones (V=7, L=5) on layer 1, the
+`avg` multitask loss, B=3, T=16 frames; dropout (keep 0.8 / 0.7) and
+scheduled sampling (0.5) on.
 Tolerances (float32, sums in other orders): loss 1e-5 relative, logits and
 gradients 1e-4 relative to each leaf's largest value, optimizer 1e-6.
 """
@@ -27,21 +29,26 @@ from e2e_asr_tpu.models import attn_decoder as jdec
 from e2e_asr_tpu.models import seq2seq as jseq2seq
 from e2e_asr_tpu.train import step as jstep
 from e2e_asr_tpu_torch.core import checkpoint, losses
-from e2e_asr_tpu_torch.models import encoder
+from e2e_asr_tpu_torch.kernels import lstm_seq
+from e2e_asr_tpu_torch.models import encoder, seq2seq
 from e2e_asr_tpu_torch.train import step
 
 torch.set_num_threads(1)
 B, T, L, FEAT, V = 3, 16, 6, 6, 9
+LP, VP = 5, 7                                   # the phone task
 
 
-def train_cfg(**dec) -> Seq2SeqConfig:
+def train_cfg() -> Seq2SeqConfig:
+    def dec(vocab):
+        return DecoderConfig(hidden_size_dec=8, emb_size=8, vocab_size=vocab,
+                             attention_vec_size=6, lm_hidden_size=8,
+                             samp_prob=0.5, out_prob_dec=0.7, max_output=8)
+
     return Seq2SeqConfig(
-        tasks=["char"], num_layers={"char": 2}, max_output={"char": 8},
+        tasks=["char", "phone"], num_layers={"char": 2, "phone": 1},
+        max_output={"char": 8, "phone": 8},
         encoder=EncoderConfig(hidden_size=8, out_prob=0.8),
-        decoders={"char": DecoderConfig(**{
-            **dict(hidden_size_dec=8, emb_size=8, vocab_size=V,
-                   attention_vec_size=6, lm_hidden_size=8, samp_prob=0.5,
-                   out_prob_dec=0.7, max_output=8), **dec})},
+        decoders={"char": dec(V), "phone": dec(VP)}, avg=True,
         feat_length=FEAT)
 
 
@@ -51,49 +58,79 @@ def make_batch(seed: int) -> dict:
     x = np.zeros((B, T, FEAT), np.float32)
     for i, n in enumerate(lens):
         x[i, :n] = rng.normal(size=(n, FEAT))
-    char_len = np.array([L - 1, 3, 2], np.int32)
-    char = np.zeros((B, L), np.int32)
-    char[:, 0] = 1
-    for i, n in enumerate(char_len):
-        char[i, 1:n] = rng.integers(3, V, size=n - 1)
-        char[i, n] = 2
-    return {"logmel": x, "logmel_len": lens, "char": char,
-            "char_len": char_len}
+    batch = {"logmel": x, "logmel_len": lens}
+    for task, steps, vocab, lengths in (("char", L, V, [L - 1, 3, 2]),
+                                        ("phone", LP, VP, [LP - 1, 2, 3])):
+        ids = np.zeros((B, steps), np.int32)
+        ids[:, 0] = 1
+        for i, n in enumerate(lengths):
+            ids[i, 1:n] = rng.integers(3, vocab, size=n - 1)
+            ids[i, n] = 2
+        batch[task] = ids
+        batch[f"{task}_len"] = np.array(lengths, np.int32)
+    return batch
 
 
-def jax_noise(cfg, key, batch) -> dict:
+def draw_jax_noise(cfg, key, batch):
     """JAX's noise for apply_train(rng=key) (seq2seq.py:81, encoder.py:258,
-    attn_decoder.py:235), as the port's noise dict."""
-    plan = encoder.layer_plan(cfg.encoder, cfg.num_layers["char"])
+    attn_decoder.py:235): the encoder's keep-masks and each task's decoder
+    noise (traceable, so a test can draw it inside its jit)."""
+    plan = encoder.layer_plan(cfg.encoder, max(cfg.num_layers.values()))
+    rng_enc, rng_dec = jax.random.split(key)
+    t, masks = batch["logmel"].shape[1], []
+    for i, reduce in enumerate(plan):
+        masks.append(jax.random.bernoulli(
+            jax.random.fold_in(rng_enc, i + 1), cfg.encoder.out_prob,
+            (t, B, 2 * cfg.encoder.hidden_size)))
+        t = -(-t // cfg.encoder.skip_step) if reduce else t
+    return masks, [jdec.train_noise(jax.random.fold_in(rng_dec, i),
+                                    cfg.decoders[task],
+                                    batch[task].shape[1] - 1, B)
+                   for i, task in enumerate(cfg.tasks)]
 
-    @jax.jit
-    def draw(key):
-        rng_enc, rng_dec = jax.random.split(key)
-        t, masks = batch["logmel"].shape[1], []
-        for i, reduce in enumerate(plan):
-            masks.append(jax.random.bernoulli(
-                jax.random.fold_in(rng_enc, i + 1), cfg.encoder.out_prob,
-                (t, B, 2 * cfg.encoder.hidden_size)))
-            t = -(-t // cfg.encoder.skip_step) if reduce else t
-        return masks, jdec.train_noise(jax.random.fold_in(rng_dec, 0),
-                                       cfg.decoders["char"], L - 1, B)
 
-    masks, (flags, gumbel, lm_masks, inter) = draw(key)
+def port_noise(cfg, drawn) -> dict:
+    """draw_jax_noise's arrays as the port's noise dict."""
+    masks, decoders = drawn
     to = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
-    return {"encoder": {i + 1: to(m) for i, m in enumerate(masks)},
-            "char": (to(flags), to(gumbel), to(lm_masks),
-                     tuple(to(m) for m in inter))}
+    noise = {"encoder": {i + 1: to(m) for i, m in enumerate(masks)}}
+    for task, (flags, gumbel, lm_masks, inter) in zip(cfg.tasks, decoders):
+        noise[task] = (to(flags), to(gumbel), to(lm_masks),
+                       tuple(to(m) for m in inter))
+    return noise
+
+
+def init_both(cfg, seed: int):
+    """Weights from the port's init for both packages: the JAX package's
+    pytree (laid out by jax.eval_shape of its init, so nothing compiles)
+    and the leaves by name."""
+    named = checkpoint.named_from_params(seq2seq.init(
+        torch.Generator().manual_seed(seed), cfg, device="cpu"))
+    shapes = jax.eval_shape(lambda: jseq2seq.init(jax.random.PRNGKey(0),
+                                                  cfg))
+    jparams = jax.tree_util.tree_map(jnp.asarray,
+                                     jckpt.unflatten_named(shapes, named))
+    return jparams, named
+
+
+def quick_jit(fn, *args):
+    """fn compiled for these arguments with XLA's backend optimizations
+    off: the same operations in float32 (results differ in the last bits at
+    most, far inside the tolerances) for about half the compile time of a
+    program these tests run a few times."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_backend_optimization_level": 0})
 
 
 @pytest.fixture(scope="module")
 def setup():
-    """The config, JAX-initialized params (also by name) and JAX's jitted
-    clip + Adam update, compiled once for the tests of this file."""
+    """The config, its params for both packages (also by name) and JAX's
+    jitted clip + Adam update, compiled once for the tests of this file."""
     cfg = train_cfg()
-    jparams = jax.jit(lambda k: jseq2seq.init(k, cfg))(jax.random.PRNGKey(3))
-    jupdate = jax.jit(jstep.make_optimizer(cfg.learning_rate,
-                                           cfg.max_gradient_norm).update)
-    return cfg, jparams, jckpt.flatten_named(jparams), jupdate
+    jparams, named = init_both(cfg, 3)
+    opt = jstep.make_optimizer(cfg.learning_rate, cfg.max_gradient_norm)
+    jupdate = quick_jit(opt.update, jparams, opt.init(jparams), jparams)
+    return cfg, jparams, named, jupdate
 
 
 def assert_leaves_close(got: dict, want: dict, rel: float = 1e-4):
@@ -162,8 +199,9 @@ def test_optimizer_matches_optax(setup):
 
 
 def test_asr_step_matches_jax(setup):
-    """One asr_step on the flagship configuration at small width, all noise
-    on: the loss and every gradient leaf against JAX's value_and_grad, and
+    """One asr_step of the char + phone model at small width, all noise on:
+    the loss, both task losses and every gradient leaf (both decoders')
+    against JAX's value_and_grad, and
     the params after the step where |g| is well above the tolerance (Adam's
     first update is about lr * sign(g)). The step's gradients are read from
     its new Adam state: after one unclipped step mu = (1 - b1) * g."""
@@ -173,14 +211,17 @@ def test_asr_step_matches_jax(setup):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     lm_cfg = LMConfig(vocab_size=V)
     jstate = jstep.create_state(jparams, cfg, lm_cfg)
-    # JAX's asr_step (train/step.py:333), keeping the loss and grads.
-    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jseq2seq.apply_train(p, cfg, jbatch, rng=key),
-        has_aux=True))(jstate.params)
+    # JAX's asr_step (train/step.py:333), keeping the loss and grads, and
+    # its noise, in one jit.
+    ((jloss, jtasks), jgrads), drawn = quick_jit(lambda p: (
+        jax.value_and_grad(
+            lambda q: jseq2seq.apply_train(q, cfg, jbatch, rng=key),
+            has_aux=True)(p),
+        draw_jax_noise(cfg, key, jbatch)), jstate.params)(jstate.params)
     assert float(optax.global_norm(jgrads)) < cfg.max_gradient_norm
     updates, _ = jupdate(jgrads, jstate.opt_state, jstate.params)
     jnew = optax.apply_updates(jstate.params, updates)
-    noise = jax_noise(cfg, key, batch)
+    noise = port_noise(cfg, drawn)
 
     state = step.create_state(checkpoint.params_from_named(named, cfg, "cpu"),
                               cfg, lm_cfg, device="cpu")
@@ -188,6 +229,10 @@ def test_asr_step_matches_jax(setup):
     new_state, metrics = port_step(state, batch, None, noise=noise)
     np.testing.assert_allclose(float(metrics["loss"]), float(jloss),
                                rtol=1e-5)
+    assert set(jtasks) == {"char", "phone"}
+    for task, want in jtasks.items():
+        np.testing.assert_allclose(float(metrics[f"loss_{task}"]),
+                                   float(want), rtol=1e-5)
     mu = checkpoint.named_from_params(new_state.opt_state.mu)
     grads = {k: v / (1 - step.B1) for k, v in mu.items()}
     jg = jckpt.flatten_named(jgrads)
@@ -219,6 +264,7 @@ def test_unported_options_raise(setup):
                     cfg.encoder, remat=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             step.make_train_step(bad, lm_cfg, device="cpu")
-    _, lm_step = step.make_train_step(cfg, lm_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_step(None, None, None, None)
+    x, w = torch.zeros(3, 2, 8), torch.zeros(2, 8)
+    for kw in (dict(drop_keep=0.9), dict(bf16_matmul=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lstm_seq.lstm_seq(x, w, **kw)

@@ -26,7 +26,9 @@ chip_smoke.py's):
    L=48; after two warm-up steps): its wall, device busy share, and the
    device time and launches of each kernel in its trace, the port's own
    kernels by name and PyTorch's (the matmuls outside the kernels, the
-   elementwise work, the optimizer) summed as "other".
+   elementwise work, the optimizer) summed as "other"; the same for one
+   asr_step of the char + phone model (phone decoder on encoder layer 3)
+   and for one lm_step at B=128, T=120 (chip_smoke.lm_batch).
 
 Traces are written under build/e2e_asr_tpu_torch/prof/. Prints one line per
 measurement, the card's name and power limit first, and the JSON of all
@@ -221,31 +223,20 @@ def profile_decode(params, cfg, dev) -> dict:
 
 OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "lstm_dw_kernel", "lstm_dw_sum_kernel", "dec_train_fwd_kernel",
-               "dec_train_bwd_kernel")
+               "dec_train_bwd_kernel", "lstm_seq_fwd_kernel")
 
 
-def profile_train(cfg, dev) -> dict:
-    lm_cfg = LMConfig(vocab_size=cfg.decoders["char"].vocab_size)
-    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
-    asr_step, _ = step.make_train_step(cfg, lm_cfg, device=dev)
-    state = step.create_state(params, cfg, lm_cfg, device=dev)
-    batch = chip_smoke.train_batch(np.random.default_rng(6),
-                                   chip_smoke.TRAIN_B, cfg)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    gen = torch.Generator(device=dev).manual_seed(6)
+def profile_step(label: str, run, frames: int) -> dict:
+    """Wall, device busy share and per-kernel device time of one call of
+    run() (a training step), after two warm-up calls."""
     for _ in range(2):
-        state, _ = asr_step(state, batch, gen)
+        run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = asr_step(state, batch, gen)
+    run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    holder = {}
-
-    def one():
-        holder["state"], _ = asr_step(state, batch, gen)
-
-    events = device_events(one, 1, "train_step")
+    events = device_events(run, 1, label.split()[0])
     split = {}
     for e in events:
         name = next((k for k in OWN_KERNELS if k in e["name"]), "other")
@@ -253,16 +244,50 @@ def profile_train(cfg, dev) -> dict:
         split[name] = (ms + e["dur"] / 1e3, n + 1)
     busy = busy_us(events) / 1e3
     row = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
-           "frames": int(batch["logmel_len"].sum()),
+           "frames": frames,
            "kernels": {k: {"device_ms": ms, "launches": n}
                        for k, (ms, n) in sorted(split.items())}}
-    print(f"train step B={chip_smoke.TRAIN_B} T={chip_smoke.TRAIN_T} "
-          f"L={chip_smoke.TRAIN_L}: wall {wall:.2f} ms, busy {busy:.2f} ms "
+    print(f"{label}: wall {wall:.2f} ms, busy {busy:.2f} ms "
           f"({busy / wall:.3f})", flush=True)
     for k, v in row["kernels"].items():
         print(f"  {k}: {v['device_ms']:.3f} ms device, {v['launches']} "
               "launches", flush=True)
-    return {"train_step": row}
+    return row
+
+
+def profile_train(cfg, dev) -> dict:
+    """One asr_step of `cfg` at the bench's train shape, and one lm_step at
+    the LM task's shape when `cfg` has a phone task (the recipe's model)."""
+    V = cfg.decoders["char"].vocab_size
+    lm_cfg = LMConfig(vocab_size=V)
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    asr_step, lm_step = step.make_train_step(cfg, lm_cfg, device=dev)
+    holder = {"state": step.create_state(params, cfg, lm_cfg, device=dev)}
+    batch = chip_smoke.train_batch(np.random.default_rng(6),
+                                   chip_smoke.TRAIN_B, cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def one_asr():
+        holder["state"], _ = asr_step(holder["state"], batch, gen)
+
+    name = "train_step" if cfg.tasks == ["char"] else "multitask_step"
+    out = {name: profile_step(
+        f"{name} B={chip_smoke.TRAIN_B} T={chip_smoke.TRAIN_T} "
+        f"L={chip_smoke.TRAIN_L}", one_asr, int(batch["logmel_len"].sum()))}
+    if "phone" in cfg.tasks:
+        ids, lens, valid = (torch.as_tensor(a, device=dev) for a in
+                            chip_smoke.lm_batch(np.random.default_rng(10),
+                                                chip_smoke.LM_B, V))
+
+        def one_lm():
+            holder["state"], _ = lm_step(holder["state"], ids, lens, gen,
+                                         valid)
+
+        out["lm_step"] = profile_step(
+            f"lm_step B={chip_smoke.LM_B} T={chip_smoke.LM_T}", one_lm, 0)
+        out["lm_step"]["tokens"] = int(lens.sum())
+    return out
 
 
 def main() -> int:
@@ -287,6 +312,8 @@ def main() -> int:
         result = {"card": card, **profile_kernels(params, cfg, dev),
                   **profile_decode(params, cfg, dev)}
     result.update(profile_train(cfg, dev))
+    result.update(profile_train(chip_smoke.flagship_cfg(
+        40, chip_smoke.PHONE_VOCAB), dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
