@@ -22,6 +22,12 @@ Phases; any failure exits nonzero and prints no result line:
    - the LM task's kernels at its shape (B=128, T=120 input steps, lengths
      24-120, H=256): kernel #3 in its inference, masked and training forms
      and its backward #5, beside cuDNN's unidirectional nn.LSTM;
+   - kernel #15, the whole beam search in one launch, on the flagship
+     encoder's output for 512-frame utterances (64 frames), 120 steps:
+     B=1 k=4, B=2 k=4 with unequal lengths, B=1 k=16, B=2 k=1 and an
+     <eos>-rigged case; outputs equal, or parting only at a near-tie of
+     the traced selections (< 1e-3); its time beside the plain version's
+     and the per-step route's on the same input;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -51,10 +57,18 @@ Phases; any failure exits nonzero and prints no result line:
    greedy WER, LR policy, saves); a second Trainer on the same directory
    must resume the saved step's state. Fails on a non-finite loss, a
    missing checkpoint, a failed resume or a kernel of the path not
-   launched.
-Each main-path run (serving, ASR training, LM + multitask, recipe) counts
-its kernels' launches from zero; a row's `launches` in the kernels line is
-their sum over those runs. The line before the last is a JSON object with
+   launched;
+7. entry points, at the flagship widths on a synthetic corpus (64
+   training, 8 dev and 8 test utterances): `cli.main` trains 2 steps;
+   `-dev -beam_size 4 -buck_batch_sizes 1` (one #15 launch per utterance,
+   no per-step kernel); `-dev` greedy; `-test -beam_size 4` at a batch of
+   64 (the per-step route); `tools.beam_grid.grid_search` over beam sizes
+   4 and 16 at a batch of 1; BatchingTranscriber(max_batch=1) serving 8
+   requests one at a time (p50/p90 latency). Each run is held to its
+   route's launches and its output files.
+Each main-path run (serving, ASR training, LM + multitask, recipe, each
+entry-point run) counts its kernels' launches from zero; a row's
+`launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
 the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off.
 """
@@ -78,12 +92,17 @@ from e2e_asr_tpu_torch.core import cells, checkpoint
 from e2e_asr_tpu_torch.core.checkpoint import named_from_params, to_device
 from e2e_asr_tpu_torch.core.layers import dropout_mask
 from e2e_asr_tpu_torch.data import synth
+from e2e_asr_tpu_torch.cli import main as cli
+from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
-from e2e_asr_tpu_torch.eval import beam_eval
+from e2e_asr_tpu_torch.data.speech import SpeechDataset
+from e2e_asr_tpu_torch.eval import beam, beam_eval
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
-from e2e_asr_tpu_torch.kernels import (beam_select, build, dec_step,
-                                       dec_train, lstm_bidir, lstm_seq)
+from e2e_asr_tpu_torch.kernels import (beam_mega, beam_select, build,
+                                       dec_step, dec_train, lstm_bidir,
+                                       lstm_seq)
 from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
+from e2e_asr_tpu_torch.tools import beam_grid
 from e2e_asr_tpu_torch.train import step
 from e2e_asr_tpu_torch.train.loop import Trainer
 
@@ -102,6 +121,11 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 384, 48  # the bench's train shape
 LM_B, LM_T = 128, 120     # lm_batch_size; input steps (the char max_output)
 PHONE_VOCAB = 46          # data/synth.py's phone vocabulary
+MEGA_T, MEGA_S = 64, 120  # encoder frames of a 512-frame bucket; max_steps
+# Kernel #15's scores where it and its plain version select the same
+# hypotheses: sums of up to 120 float32 log-probs, 1e-5 of |score| (at
+# least 1e-4).
+MEGA_SCORE_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -183,24 +207,30 @@ class Recorder:
         else:
             abs_err, rel_err = max_err(got, want)
             ok = abs_err <= TOL[name]
-        ms, plain_ms = time_ms(fn, n), time_ms(ref, n_ref, warmup=1)
-        bound_ms, bound_by = bound(*work)
-        library_ms = None if library is None else library()
-        lib = "none" if library_ms is None else f"{library_ms:.4f}"
-        kind = "relative" if name in RELATIVE else "absolute"
-        print(f"kernel {name}: max_abs_err={abs_err:.3e} "
-              f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
-              f"({kind}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib}",
-              flush=True)
         if not ok:
             fail(f"{name} disagrees with its plain version: {abs_err} "
                  f"(relative {rel_err})")
+        kind = "relative" if name in RELATIVE else "absolute"
+        self.add(name, source, replaces, abs_err,
+                 f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
+                 f"({kind})", time_ms(fn, n), time_ms(ref, n_ref, warmup=1),
+                 work, None if library is None else library())
+
+    def add(self, name, source, replaces, abs_err, note, ms, plain_ms, work,
+            library_ms, **extra):
+        """Print and keep a row whose error has been checked."""
+        bound_ms, bound_by = bound(*work)
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(f"kernel {name}: max_abs_err={abs_err:.3e} {note} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib}"
+              + "".join(f" {k}={v:.4f}" for k, v in extra.items()),
+              flush=True)
         self.rows.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "max_abs_err": abs_err,
                           "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms})
+                          "library_ms": library_ms, **extra})
 
 
 def cudnn_lstm_ms(x, lens, H, bidirectional, backward) -> float:
@@ -446,6 +476,114 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
             inputs + nbytes(dlog, *got) + saves))
 
 
+def mega_work(dec, B: int, k: int, Henc: int, steps: int, inputs,
+              outputs) -> tuple[float, int]:
+    """(operations, bytes) of one whole search of kernel #15 that runs
+    `steps` steps over N = B*k rows and MEGA_T encoder frames: the products
+    of every 2-D decoder weight the step uses (not attn_w, applied before
+    the search, nor the embedding, a gather), the attention (add, tanh,
+    multiply, sum over A; the context over Henc) and the softmaxes; bytes:
+    each input read once, each output written once."""
+    N, A = B * k, dec["attn_query"]["kernel"].shape[-1]
+    names = ["lm_cell", "simple_proj", "input_proj", "attn_query",
+             "attn_proj", "output_proj"]
+    mats = [dec[n]["kernel"] for n in names if n in dec]
+    mats += [c["kernel"] for c in dec["dec_cells"]]
+    V = dec["output_proj"]["kernel"].shape[-1]
+    per_step = (2 * N * sum(w.numel() for w in mats)
+                + N * MEGA_T * (4 * A + 2 * Henc + 4) + 4 * N * V)
+    return steps * per_step, nbytes(*inputs, *outputs)
+
+
+def check_mega(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, kernel #15 at the flagship widths on the flagship
+    encoder's output for 512-frame utterances (64 frames), 120 steps:
+    B=1 k=4, B=2 k=4 with unequal lengths, B=1 k=16, B=2 k=1 and an
+    <eos>-rigged B=2 k=4 (the output kernel zero, the <eos> bias 50: every
+    hypothesis finishes at its first step). Each case is one launch; its
+    outputs equal the plain version's, or part at a near-tie. Times at
+    B=1 k=4 beside the plain version's and the per-step route's."""
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    rng = np.random.default_rng(11)
+    feats = torch.tensor(rng.normal(size=(2, 8 * MEGA_T, cfg.feat_length))
+                         .astype(np.float32), device=dev)
+    with torch.no_grad():
+        states, _, lens = seq2seq.encode(params, cfg, feats, torch.tensor(
+            [8 * MEGA_T, 300], device=dev))
+    depth = cfg.num_layers["char"]
+    enc, enc_lens = states[depth].contiguous(), lens[depth]
+    rigged = dict(dec, output_proj={
+        "kernel": torch.zeros_like(dec["output_proj"]["kernel"]),
+        "bias": torch.zeros_like(dec["output_proj"]["bias"])})
+    rigged["output_proj"]["bias"][EOS_ID] = 50.0
+    worst, parted, steps_run = 0.0, 0, {}
+    for name, B, k, p in (("b1_k4", 1, 4, dec), ("b2_k4", 2, 4, dec),
+                          ("b1_k16", 1, 16, dec), ("b2_k1", 2, 1, dec),
+                          ("b2_k4_eos_rigged", 2, 4, rigged)):
+        bc = BeamConfig(beam_size=k, max_steps=MEGA_S)
+        ctx = attn_decoder.make_attn_context(p, enc[:B], enc_lens[:B])
+        args = (p, dcfg, bc, ctx.enc_states.contiguous(),
+                ctx.hidden_features, ctx.mask)
+        before = beam_mega.LAUNCHES
+        got = beam_mega.beam_decode_mega(*args, trace=True)
+        torch.cuda.synchronize()
+        if beam_mega.LAUNCHES != before + 1:
+            fail(f"beam_mega {name}: not one launch")
+        want = beam_mega.beam_decode_mega_reference(*args, trace=True)
+        try:
+            parts = beam_mega.parting(got, want, NEAR_TIE)
+        except ValueError as e:
+            fail(f"beam_mega {name} disagrees with its plain version: {e}")
+        tokens, out_lens, scores, trace = [
+            x.cpu() if torch.is_tensor(x) else x for x in got]
+        for b, part in enumerate(parts):
+            if part is not None:
+                parted += 1
+                print(f"beam_mega {name} utterance {b}: parts from the plain "
+                      f"version at step {part[0]} rank {part[1]}, selection "
+                      f"gap {part[2]:.3e} (near-tie limit {NEAR_TIE})")
+                continue
+            err = abs(float(scores[b]) - float(want[2][b]))
+            if err > MEGA_SCORE_TOL * max(1.0, abs(float(want[2][b]))):
+                fail(f"beam_mega {name} utterance {b}: score error {err}")
+            worst = max(worst, err)
+        if (tokens.shape != (B, MEGA_S) or not torch.isfinite(scores).all()
+                or not ((tokens >= 0) & (tokens < dcfg.vocab_size)).all()
+                or not ((out_lens >= 1) & (out_lens <= MEGA_S)).all()):
+            fail(f"beam_mega {name}: bad outputs {out_lens.tolist()} "
+                 f"{scores.tolist()}")
+        if p is rigged and out_lens.tolist() != [1] * B:
+            fail(f"beam_mega {name}: the rigged decoder did not finish at "
+                 f"its first step: {out_lens.tolist()}")
+        steps_run[name] = len(trace["vals"])
+        print(f"beam_mega {name}: {steps_run[name]} steps in one launch, "
+              f"lengths {out_lens.tolist()}, scores {scores.tolist()}",
+              flush=True)
+    bc = BeamConfig(beam_size=4, max_steps=MEGA_S)
+    ctx = attn_decoder.make_attn_context(dec, enc[:1], enc_lens[:1])
+    args = (dec, dcfg, bc, ctx.enc_states.contiguous(), ctx.hidden_features,
+            ctx.mask)
+    out = beam_mega.beam_decode_mega(*args)
+    weights = [w for name, w in checkpoint.flatten_named(dec).items()
+               if not name.startswith("attn_w")]
+    record.add("beam_mega", "e2e_asr_tpu_torch/csrc/beam_mega.cu",
+               "e2e_asr_tpu/ops/beam_megakernel.py:368", worst,
+               f"score_tolerance={MEGA_SCORE_TOL:.0e} (relative) "
+               f"near_tie_partings={parted} (B=1 k=4 T={MEGA_T} "
+               f"{steps_run['b1_k4']} steps)",
+               time_ms(lambda: beam_mega.beam_decode_mega(*args), 5),
+               time_ms(lambda: beam_mega.beam_decode_mega_reference(*args), 2,
+                       warmup=1),
+               mega_work(dec, 1, 4, enc.shape[-1], steps_run["b1_k4"],
+                         [*args[3:], *weights], out),
+               None,
+               steps_route_ms=time_ms(lambda: beam.beam_decode_steps(
+                   dec, dcfg, bc, enc[:1], enc_lens[:1]), 2, warmup=1))
+    print("beam_mega: library none (no single PyTorch call computes a beam "
+          "search); steps_route_ms is the per-step route it replaces on the "
+          "same input", flush=True)
+
+
 def lm_batch(rng, B: int, V: int):
     """An LM batch as data/lm.py gives one, time-major: ids [LM_T + 1, B]
     from <go> with 24-LM_T tokens (the last <eos>), their counts, and the
@@ -621,7 +759,8 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "lstm_seq": (lstm_seq, "LAUNCHES"),
             "lstm_seq_masked": (lstm_seq, "MASKED_LAUNCHES"),
             "lstm_seq_train": (lstm_seq, "TRAIN_LAUNCHES"),
-            "lstm_bwd_lm": (lstm_bidir, "BWD_SINGLE_LAUNCHES")}
+            "lstm_bwd_lm": (lstm_bidir, "BWD_SINGLE_LAUNCHES"),
+            "beam_mega": (beam_mega, "LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -944,6 +1083,128 @@ def recipe(dev, card) -> dict:
     return launches
 
 
+def entry_points(dev, card) -> dict:
+    """Phase 7: the command line and the serving engine at the flagship
+    widths on a synthetic corpus (64 training, 8 dev and 8 test
+    utterances of 24-47 tokens at 8 frames a token): (1) `cli.main` trains
+    2 steps at a batch of 32 (with a greedy dev evaluation and a save);
+    (2) `-dev -beam_size 4 -buck_batch_sizes 1`: one #15 launch per dev
+    utterance and no per-step kernel; (3) `-dev` greedy; (4) `-test
+    -beam_size 4` at a batch of 64 takes the per-step route; (5)
+    grid_search over beam sizes 4 and 16 with one cov_penalty at a batch
+    of 1, and its final test evaluation; (6) BatchingTranscriber with
+    max_batch=1 serves 8 requests one at a time. Each run counts from
+    zero and is held to its route's launches and its output files.
+    Returns the launches of each run."""
+    runs = {}
+    mega = ("beam_mega",)
+    per_step = ("cells_fused", "output_fused", "beam_select")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.monotonic()
+        vocab, data = os.path.join(root, "vocab"), os.path.join(root, "data")
+        synth.make_vocab_dir(vocab)
+        os.makedirs(data)
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        for name, n, seed in (("train_1k.0.0001", 64, 3), ("dev.0001", 8, 4),
+                              ("eval2000.0001", 8, 5)):
+            synth.write_speech_corpus(os.path.join(data, name), n, seed=seed,
+                                      **utt)
+        print(f"entry points: corpus written in {time.monotonic() - t0:.1f} "
+              "s", flush=True)
+        base = ["-data_dir", data, "-vocab_dir", vocab, "-tb_dir",
+                os.path.join(root, "models"), "-steps_per_checkpoint", "2",
+                "-max_epochs", "0", "-compute_dtype", "float32"]
+        cfg = cli.parse_options(base + ["-dev"])
+        best, train_dir = cfg.train.best_model_dir, cfg.train.train_dir
+
+        def run(name, fn, required, forbidden, launches=None):
+            zero_launches()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = read_launches(name, required)
+            for k in forbidden:
+                if counts[k]:
+                    fail(f"the {name} run launched {k} off its route")
+            if launches is not None and counts["beam_mega"] != launches:
+                fail(f"the {name} run launched #15 {counts['beam_mega']} "
+                     f"times, not {launches}")
+            print(f"{name} ({card}): wall {wall:.3f} s", flush=True)
+            runs[name] = counts
+            return wall
+
+        def lines(path, n):
+            with open(path) as f:
+                if len(f.read().splitlines()) != n:
+                    fail(f"{path}: not {n} lines")
+
+        run("cli train", lambda: cli.main(base + ["-buck_batch_sizes", "32"]),
+            TRAIN_PATH + ("lstm_bidir", "cells_fused", "output_fused"), mega)
+        if not (os.path.isfile(os.path.join(train_dir, "parameters.txt"))
+                and checkpoint.latest_path(train_dir)):
+            fail("cli train wrote no parameters.txt or checkpoint")
+        wall = run("cli -dev beam 4 batch 1", lambda: cli.main(
+            base + ["-dev", "-beam_size", "4", "-buck_batch_sizes", "1"]),
+            ("lstm_bidir", "beam_mega"), per_step, launches=8)
+        lines(os.path.join(best, "raw_4.txt"), 8)
+        print(f"cli -dev beam 4 batch 1: {wall / 8 * 1e3:.1f} ms of wall an "
+              "utterance (model restore and data included)")
+        run("cli -dev greedy", lambda: cli.main(
+            base + ["-dev", "-buck_batch_sizes", "32"]),
+            ("lstm_bidir", "cells_fused", "output_fused"),
+            ("beam_select", "beam_mega"))
+        lines(os.path.join(best, "decoded_asr.txt"), 8)
+        run("cli -test beam 4", lambda: cli.main(
+            base + ["-test", "-beam_size", "4"]),
+            ("lstm_bidir",) + per_step, mega)
+        lines(os.path.join(best, "raw_4.txt"), 8)
+
+        named, _ = checkpoint.restore_latest(train_dir)
+        params = checkpoint.params_from_named(
+            {k[len("params/"):]: v for k, v in named.items()
+             if k.startswith("params/")}, cfg.model, dev)
+        _, rev_vocab = text.initialize_vocabulary(
+            os.path.join(vocab, "char.vocab"))
+        one = lambda name: SpeechDataset(  # noqa: E731
+            [os.path.join(data, name)], 1, 80, is_training=False,
+            tasks=("char",)).epoch
+        grid_dir = os.path.join(root, "grid")
+        found = {}
+        run("beam grid", lambda: found.update(best=beam_grid.grid_search(
+            params, cfg.model, rev_vocab, one("dev.0001"), grid_dir,
+            beam_sizes=(4, 16), cov_penalties=(0.05,),
+            test_batches_fn=one("eval2000.0001"), device=dev)),
+            ("lstm_bidir", "beam_mega"), per_step, launches=24)
+        lines(os.path.join(grid_dir, "perf.txt"), 2)
+        lines(os.path.join(grid_dir, "final_eval", "score.txt"), 1)
+        print(f"beam grid: best {found['best'][0].beam_size} at dev WER "
+              f"{found['best'][1]:.4f}", flush=True)
+
+        rng = np.random.default_rng(12)
+        feats = [rng.normal(size=(n, 80)).astype(np.float32)
+                 for n in rng.integers(120, 513, size=8)]
+        latency = []
+
+        def serve_one_by_one():
+            with BatchingTranscriber(
+                    params, cfg.model, rev_vocab, device=dev,
+                    beam_cfg=BeamConfig(beam_size=4, max_steps=120),
+                    bucket_frames=(128, 256, 512), max_batch=1) as engine:
+                for x in feats:
+                    t0 = time.monotonic()
+                    engine.transcribe(x)
+                    latency.append((time.monotonic() - t0) * 1e3)
+
+        run("serving max_batch 1", serve_one_by_one, ("lstm_bidir",) + mega,
+            per_step, launches=8)
+        print(f"serving max_batch 1 ({card}): 8 requests one at a time, "
+              f"latency p50 {np.percentile(latency, 50):.1f} ms, p90 "
+              f"{np.percentile(latency, 90):.1f} ms", flush=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -982,6 +1243,7 @@ def main() -> int:
         check_kernels(params, cfg, dev, record)
     check_train_kernels(params, cfg, dev, record)
     check_lm_kernels(params, cfg, dev, record)
+    check_mega(params, cfg, dev, record)
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
@@ -1003,6 +1265,9 @@ def main() -> int:
 
     # 6. recipe
     paths["recipe"] = recipe(dev, card)
+
+    # 7. entry points
+    paths.update(entry_points(dev, card))
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"kernels": record.rows}))

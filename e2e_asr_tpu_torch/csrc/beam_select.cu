@@ -20,16 +20,7 @@
 
 namespace {
 
-// Whether candidate (v, i) ranks before (bv, bi); index -1 is "none".
-__device__ __forceinline__ bool ranks_before(float v, int i, float bv,
-                                             int bi) {
-  if (i < 0) return false;
-  if (bi < 0) return true;
-  const bool vn = isnan(v), bn = isnan(bv);
-  if (vn != bn) return vn;
-  if (!vn && v != bv) return v > bv;
-  return i < bi;
-}
+using e2e::ranks_before;
 
 __global__ void beam_select_kernel(
     const float* __restrict__ scores, const float* __restrict__ logp,

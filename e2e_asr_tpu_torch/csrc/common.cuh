@@ -23,4 +23,18 @@ __device__ __forceinline__ float lstm_cell(float gi, float gj, float gf,
   return sigmoid(go) * tanhf(c);
 }
 
+// Whether beam candidate (v, i) ranks before (bv, bi) in the selection
+// order of the plain versions' stable descending sort: NaN above
+// everything, then by value, ties to the lower flat index (as lax.top_k).
+// Index -1 is "none". A strict total order on distinct indices.
+__device__ __forceinline__ bool ranks_before(float v, int i, float bv,
+                                             int bi) {
+  if (i < 0) return false;
+  if (bi < 0) return true;
+  const bool vn = isnan(v), bn = isnan(bv);
+  if (vn != bn) return vn;
+  if (!vn && v != bv) return v > bv;
+  return i < bi;
+}
+
 }  // namespace e2e

@@ -1,10 +1,18 @@
-"""Beam-search decoding entry point: encoder + batched beam search (port of
-e2e_asr_tpu/eval/beam_eval.py `make_beam_decoder`, attention family)."""
+"""Beam-search decoding and evaluation: encoder + batched beam search +
+WER (port of e2e_asr_tpu/eval/beam_eval.py `make_beam_decoder` and
+`BeamEvaluator`, attention family)."""
 from __future__ import annotations
+
+import os
 
 import torch
 
 from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
+from e2e_asr_tpu_torch.core.checkpoint import to_device
+from e2e_asr_tpu_torch.core.device import resolve
+from e2e_asr_tpu_torch.data import text
+from e2e_asr_tpu_torch.eval import score as score_lib
+from e2e_asr_tpu_torch.eval.score import WerAccumulator
 from e2e_asr_tpu_torch.eval.beam import beam_decode, check_supported
 from e2e_asr_tpu_torch.models import seq2seq
 
@@ -43,3 +51,82 @@ def make_beam_decoder(cfg: Seq2SeqConfig, beam_cfg: BeamConfig, *,
                            attn_states[depth], enc_lens[depth])
 
     return decode
+
+
+class BeamEvaluator:
+    """Beam-search evaluation (port of e2e_asr_tpu/eval/beam_eval.py
+    `BeamEvaluator`, attention family): the encoder and the batched beam
+    search (`make_beam_decoder`: kernel #15's route at B <= 2, the per-step
+    route above), detokenization, filler filtering and the edit distance;
+    writes gold.txt and raw_{beam_size}.txt into out_dir and prints the
+    score with its insertion / deletion / substitution breakdown.
+
+    Not ported (NotImplementedError naming the ROADMAP.md item): n-best
+    CTC rescoring (`ctc_rescore`), n-best output, second-pass LM rescoring
+    (`lm_rescore`, raised by make_beam_decoder) and the data-parallel
+    decode mesh."""
+
+    score_unit = "word"      # "char" = CER (see GreedyEvaluator.score_unit)
+
+    def __init__(self, cfg: Seq2SeqConfig, beam_cfg: BeamConfig,
+                 rev_vocab: list[str], out_dir: str, *, compute_dtype=None,
+                 lm_params=None, bias=None, nbest: int = 1, mesh=None,
+                 device=None):
+        """Decodes on `device` (default: the CUDA card; raises without
+        one)."""
+        if mesh is not None:
+            raise NotImplementedError("the data-parallel decode mesh is not "
+                                      "ported yet (ROADMAP.md Queue 1, "
+                                      "'Parallelism last')")
+        if beam_cfg.ctc_rescore > 0:
+            raise NotImplementedError("n-best CTC rescoring is not ported "
+                                      "yet (ROADMAP.md Queue 1, 'CTC "
+                                      "family')")
+        self.beam_cfg = beam_cfg
+        self.rev_vocab = rev_vocab
+        self.out_dir = out_dir
+        self.device = resolve(device)
+        self._decode = make_beam_decoder(cfg, beam_cfg,
+                                         compute_dtype=compute_dtype,
+                                         lm_params=lm_params, bias=bias,
+                                         nbest=nbest)
+
+    def __call__(self, params, batches, *, write_files: bool = True) -> float:
+        """The filler-filtered WER over `batches` (an iterable of dataset
+        batches with `valid` masks)."""
+        acc = WerAccumulator()
+        os.makedirs(self.out_dir, exist_ok=True)
+        gold_path = os.path.join(self.out_dir, "gold.txt")
+        raw_path = os.path.join(self.out_dir,
+                                f"raw_{self.beam_cfg.beam_size}.txt")
+        files = ([open(gold_path, "w"), open(raw_path, "w")] if write_files
+                 else [])
+        params = to_device(params, self.device)
+        try:
+            for batch in batches:
+                tokens, lens, _ = self._decode(params, batch)
+                tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+                for i in range(tokens.shape[0]):
+                    if not batch["valid"][i]:
+                        continue
+                    hyp_sent = text.ids_to_sentence(tokens[i, : lens[i]],
+                                                    self.rev_vocab)
+                    gold_sent = text.ids_to_sentence(batch["char"][i, 1:],
+                                                     self.rev_vocab)
+                    raw_words, hyp_words = text.get_relevant_words(hyp_sent)
+                    _, gold_words = text.get_relevant_words(gold_sent)
+                    score_lib.accumulate(acc, hyp_words, gold_words,
+                                         self.score_unit)
+                    if write_files:
+                        uid = batch["utt_ids"][i]
+                        files[0].write(f"{uid}\t{' '.join(gold_words)}\n")
+                        files[1].write(f"{uid}\t{' '.join(raw_words)}\n")
+        finally:
+            for f in files:
+                f.close()
+        if write_files:
+            print(f"Output at: {raw_path}")
+        print(f"Score: {acc.score:f}")
+        print(f"Insertion: {acc.insertions}, Deletion: {acc.deletions}, "
+              f"Substitution: {acc.substitutions}")
+        return acc.score

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "e2e_output_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "e2e_beam_select": [_P, _P, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "e2e_beam_mega_scratch": [_P, _I, _P],
+    "e2e_beam_mega": [_P, _I, _P, _I, ctypes.c_double, _P],
 }
 _lock = threading.Lock()
 

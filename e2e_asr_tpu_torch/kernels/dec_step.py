@@ -1,6 +1,7 @@
 """Kernels B and C: one attention-decoder inference step
 (`csrc/dec_step.cu`), split around the additive attention, which stays in
-plain PyTorch as the reference leaves it to XLA (eval/beam.py `_dec_step`).
+plain PyTorch as the reference leaves it to XLA (kernels/beam_mega.py
+`search`, the per-step route of eval/beam.py).
 
 B `cells_fused` replaces e2e_asr_tpu/ops/dec_step_pallas.py `cells_fused`:
 decoder-LM LSTM -> [SimpleProjection] -> InputProjection([lm_out, ctx_prev])

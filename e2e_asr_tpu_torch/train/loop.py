@@ -25,7 +25,8 @@ seeds its key; the coins and the data order use the reference's seeds.
 TrainConfig fields the port does not honour raise NotImplementedError,
 naming their ROADMAP.md item, when they differ from their default
 (`UNPORTED`); so do bf16 compute (set compute_dtype="float32") and the
-non-attention families.
+non-attention families. `platform` and `score_unit` are the command
+line's (cli/main.py), as in the JAX package, whose Trainer reads neither.
 """
 from __future__ import annotations
 
@@ -70,9 +71,7 @@ UNPORTED = {
     "rng_impl": "Training extensions",
     "compile_cache": "Training extensions",
     "quantize": "Decode features",
-    "eval_avg_ckpts": "CLI",
-    "score_unit": "CLI",
-    "platform": "CLI",
+    "eval_avg_ckpts": "Tools",
     "data_axis": "Parallelism last",
     "model_axis": "Parallelism last",
     "fsdp": "Parallelism last",

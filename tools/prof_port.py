@@ -21,7 +21,9 @@ chip_smoke.py's):
    beam 4, 120 steps): `wall_ms` on the host clock around the decode and a
    device sync; `busy_ms`, the union of the intervals of all device
    activity in its trace (overlaps counted once); `busy_share` =
-   busy_ms / wall_ms; and the encoder's wall alone;
+   busy_ms / wall_ms; and the encoder's wall alone; then one 512-frame
+   utterance at beam 4: the whole decode (kernel #15's route at B=1) and
+   the search alone by either route, #15 or the per-step kernels;
 3. one asr_step of the flagship at the bench's train shape (B=128, T=384,
    L=48; after two warm-up steps): its wall, device busy share, and the
    device time and launches of each kernel in its trace, the port's own
@@ -52,7 +54,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from e2e_asr_tpu_torch.core import cells  # noqa: E402
-from e2e_asr_tpu_torch.eval import beam_eval  # noqa: E402
+from e2e_asr_tpu_torch.eval import beam, beam_eval  # noqa: E402
 from e2e_asr_tpu_torch.kernels import (beam_select, build,  # noqa: E402
                                        dec_step, lstm_bidir)
 from e2e_asr_tpu_torch.models import seq2seq  # noqa: E402
@@ -221,6 +223,50 @@ def profile_decode(params, cfg, dev) -> dict:
     return out
 
 
+def profile_one_utterance(params, cfg, dev) -> dict:
+    """One 512-frame utterance at beam 4 (120 steps): the whole decode
+    through make_beam_decoder (kernel #15's route at B=1), and the search
+    alone on the same encoder output by either route (#15, and the
+    per-step route of kernels #11, #12, #14): wall, device busy time and
+    share, and #15's device time."""
+    rng = np.random.default_rng(3)
+    bc = BeamConfig(beam_size=4, max_steps=120)
+    batch = {"logmel": rng.normal(size=(1, 512, cfg.feat_length))
+             .astype(np.float32), "logmel_len": np.array([512])}
+    decode = beam_eval.make_beam_decoder(cfg, bc)
+    feats = torch.tensor(batch["logmel"], device=dev)
+    states, _, lens = seq2seq.encode(params, cfg, feats, torch.tensor(
+        batch["logmel_len"], device=dev))
+    depth = cfg.num_layers["char"]
+    enc, enc_lens = states[depth], lens[depth]
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    out = {}
+    for name, fn in (
+            ("one_utterance_decode", lambda: decode(params, batch)),
+            ("one_utterance_mega", lambda: beam.beam_decode(
+                dec, dcfg, bc, enc, enc_lens)),
+            ("one_utterance_steps", lambda: beam.beam_decode_steps(
+                dec, dcfg, bc, enc, enc_lens))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(fn, 1, name)
+        busy = busy_us(events) / 1e3
+        row = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+               "beam_mega_device_ms": sum(
+                   e["dur"] for e in events
+                   if "beam_mega_kernel" in e["name"]) / 1e3,
+               "device_launches": len(events)}
+        print(f"{name}: " + " ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items()), flush=True)
+        out[name] = row
+    return out
+
+
 OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "lstm_dw_kernel", "lstm_dw_sum_kernel", "dec_train_fwd_kernel",
                "dec_train_bwd_kernel", "lstm_seq_fwd_kernel")
@@ -310,7 +356,8 @@ def main() -> int:
         params = seq2seq.init(torch.Generator().manual_seed(0), cfg,
                               device=dev)
         result = {"card": card, **profile_kernels(params, cfg, dev),
-                  **profile_decode(params, cfg, dev)}
+                  **profile_decode(params, cfg, dev),
+                  **profile_one_utterance(params, cfg, dev)}
     result.update(profile_train(cfg, dev))
     result.update(profile_train(chip_smoke.flagship_cfg(
         40, chip_smoke.PHONE_VOCAB), dev))
