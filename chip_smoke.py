@@ -28,6 +28,14 @@ Phases; any failure exits nonzero and prints no result line:
      <eos>-rigged case; outputs equal, or parting only at a near-tie of
      the traced selections (< 1e-3); its time beside the plain version's
      and the per-step route's on the same input;
+   - the GRU family's kernels on the `-gru` flagship (GRU encoder and
+     decoders of the same widths): #6 (both directions in one launch,
+     one direction with the carry mask, the training form) and #7 (both
+     directions, one direction with the mask) on encoder layer 1 at the
+     serving shape (T=512, B=8) and the train shape (T=384, B=128), beside
+     cuDNN's nn.GRU (another function, a cost comparison only); #10's
+     forward and backward at the step's shapes (B=128, 47 steps; the char
+     decoder, V=40, on 48 encoder frames, the phone decoder, V=46, on 96);
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -65,11 +73,20 @@ Phases; any failure exits nonzero and prints no result line:
    64 (the per-step route); `tools.beam_grid.grid_search` over beam sizes
    4 and 16 at a batch of 1; BatchingTranscriber(max_batch=1) serving 8
    requests one at a time (p50/p90 latency). Each run is held to its
-   route's launches and its output files.
+   route's launches and its output files;
+8. the GRU family (`-gru`): one char + phone asr_step at B=16 on the card
+   and on the CPU must agree (loss, gradients, params after), then three
+   steps at B=128, T=384, L=48, every loss finite, kernels #6, #7 and #10
+   launched; their step time and frames/s, and one step's device-busy
+   share and per-kernel split (tools/prof_port.py);
+9. a GRU encoder under the LSTM decoders: the Trainer on phase 6's corpus
+   (train, greedy dev WER, save, resume), BeamEvaluator over its 64 dev
+   utterances at a batch of 1 (one #15 launch each), and phase 4's
+   serving burst and card-vs-CPU decode; each run launches #6.
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
-entry-point run) counts its kernels' launches from zero; a row's
-`launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
-the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
+entry-point run, the GRU runs) counts its kernels' launches from zero; a
+row's `launches` in the kernels line is their sum over those runs. The line
+before the last is a JSON object with the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off.
 """
 from __future__ import annotations
@@ -99,8 +116,8 @@ from e2e_asr_tpu_torch.data.speech import SpeechDataset
 from e2e_asr_tpu_torch.eval import beam, beam_eval
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
 from e2e_asr_tpu_torch.kernels import (beam_mega, beam_select, build,
-                                       dec_step, dec_train, lstm_bidir,
-                                       lstm_seq)
+                                       dec_step, dec_train, dec_train_gru,
+                                       gru_seq, lstm_bidir, lstm_seq)
 from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
 from e2e_asr_tpu_torch.tools import beam_grid
 from e2e_asr_tpu_torch.train import step
@@ -114,8 +131,13 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "beam_select": 0.0, "lstm_bidir_train": 1e-4, "lstm_bidir_bwd": 1e-4,
        "lstm_bwd": 1e-4, "dec_train_fwd": 1e-4, "dec_train_bwd": 1e-4,
        "lstm_seq": 1e-4, "lstm_seq_masked": 1e-4, "lstm_seq_train": 1e-4,
-       "lstm_bwd_lm": 1e-4}
-RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm"}
+       "lstm_bwd_lm": 1e-4, "gru_bidir": 1e-4, "gru_seq_masked": 1e-4,
+       "gru_bidir_train": 1e-4, "gru_bidir_bwd": 1e-4, "gru_bwd": 1e-4,
+       "dec_train_gru_fwd": 1e-4, "dec_train_gru_bwd": 1e-4,
+       "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4}
+RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
+            "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
+            "dec_train_gru_bwd_phone"}
 NEAR_TIE = 1e-3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 384, 48  # the bench's train shape
@@ -167,14 +189,18 @@ def bound(flops: float, moved: int) -> tuple[float, str]:
             else (bytes_ms, "bytes"))
 
 
-def flagship_cfg(char_vocab: int = 40, phone_vocab: int | None = None):
+def flagship_cfg(char_vocab: int = 40, phone_vocab: int | None = None,
+                 cells: str = "lstm"):
     """The flagship model; with phone_vocab, the recipe's char + phone
     multitask (a phone decoder of the same widths on encoder layer 3, the
-    `-nlp` default)."""
+    `-nlp` default). cells: "lstm"; "gru", the GRU family of `-gru` (GRU
+    encoder and decoders); "gru_encoder", a GRU encoder under the LSTM
+    decoders."""
     def dec(vocab, max_output):
         return DecoderConfig(hidden_size_dec=256, emb_size=256,
                              vocab_size=vocab, lm_hidden_size=256,
-                             attention_vec_size=128, max_output=max_output)
+                             attention_vec_size=128, max_output=max_output,
+                             use_lstm=cells != "gru")
 
     tasks, layers, out = ["char"], {"char": 4}, {"char": 120}
     decoders = {"char": dec(char_vocab, 120)}
@@ -185,7 +211,7 @@ def flagship_cfg(char_vocab: int = 40, phone_vocab: int | None = None):
     return Seq2SeqConfig(
         tasks=tasks, num_layers=layers, max_output=out,
         encoder=EncoderConfig(hidden_size=256, skip_step=2,
-                              max_scaling_down=8),
+                              max_scaling_down=8, use_lstm=cells == "lstm"),
         decoders=decoders, avg=True, feat_length=80)
 
 
@@ -196,7 +222,17 @@ class Recorder:
         self.rows = []
 
     def __call__(self, name, source, replaces, got, want, fn, ref, n, n_ref,
-                 work, library=None):
+                 work, library=None, **extra):
+        abs_err, rel_err, kind = self.hold(name, got, want)
+        self.add(name, source, replaces, abs_err,
+                 f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
+                 f"({kind})", time_ms(fn, n), time_ms(ref, n_ref, warmup=1),
+                 work, None if library is None else library(), **extra)
+
+    @staticmethod
+    def hold(name, got, want) -> tuple[float, float, str]:
+        """(absolute error, relative error, kind) of a kernel's outputs
+        against its plain version's; fails past the row's tolerance."""
         if name in RELATIVE:
             errs = [(float((g - w).abs().max()),
                      max(float(w.abs().max()), 1e-6))
@@ -210,11 +246,7 @@ class Recorder:
         if not ok:
             fail(f"{name} disagrees with its plain version: {abs_err} "
                  f"(relative {rel_err})")
-        kind = "relative" if name in RELATIVE else "absolute"
-        self.add(name, source, replaces, abs_err,
-                 f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
-                 f"({kind})", time_ms(fn, n), time_ms(ref, n_ref, warmup=1),
-                 work, None if library is None else library())
+        return abs_err, rel_err, "relative" if name in RELATIVE else "absolute"
 
     def add(self, name, source, replaces, abs_err, note, ms, plain_ms, work,
             library_ms, **extra):
@@ -233,12 +265,13 @@ class Recorder:
                           "library_ms": library_ms, **extra})
 
 
-def cudnn_lstm_ms(x, lens, H, bidirectional, backward) -> float:
-    """cuDNN's nn.LSTM on the packed batch (same input width, hidden size
-    and lengths): its training forward, or its backward as the time of
-    forward + backward less the forward's. Timed only, as a yardstick."""
-    lstm = torch.nn.LSTM(x.shape[-1], H, bidirectional=bidirectional).to(
-        x.device)
+def cudnn_lstm_ms(x, lens, H, bidirectional, backward,
+                  rnn=torch.nn.LSTM) -> float:
+    """cuDNN's nn.LSTM (or `rnn`) on the packed batch (same input width,
+    hidden size and lengths): its training forward, or its backward as the
+    time of forward + backward less the forward's. Timed only, as a
+    yardstick."""
+    lstm = rnn(x.shape[-1], H, bidirectional=bidirectional).to(x.device)
     xg = x.detach().clone().requires_grad_(True)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         xg, lens.cpu(), enforce_sorted=False)
@@ -340,6 +373,31 @@ def check_kernels(params, cfg, dev, record: Recorder) -> None:
            (B * k * V * k, nbytes(*d_args, *got.values())))
 
 
+def near_tie_partings(what: str, free, kernel_tokens, gum_sh, flag_sh
+                      ) -> int:
+    """Where a decoder's training kernel samples other tokens than its
+    plain version run freely (`free`, its logits), each row's first
+    parting must be a near-tie of the plain run's sampling scores; fails
+    otherwise. Returns the number of rows that part."""
+    plain_tokens = dec_train.sampled_tokens(free, gum_sh)
+    differ = (kernel_tokens != plain_tokens) & (flag_sh > 0)
+    for b in range(differ.shape[1]):
+        steps = torch.nonzero(differ[:, b]).flatten()
+        if len(steps):     # later steps of this row follow the first part
+            t = int(steps[0])
+            z = free[t - 1, b] + gum_sh[t, b]
+            gap = float(z[plain_tokens[t, b]] - z[kernel_tokens[t, b]])
+            print(f"{what} row {b}: sampled tokens part at step {t}, "
+                  f"gap {gap:.3e} (near-tie limit {NEAR_TIE})")
+            if gap >= NEAR_TIE:
+                fail(f"{what} row {b} samples another token at step {t}: "
+                     f"gap {gap}")
+    parted = int(differ.any(0).sum())
+    print(f"{what}: {int((flag_sh[:, 0] > 0).sum())} sampled steps, "
+          f"{parted} rows part at a near-tie", flush=True)
+    return parted
+
+
 def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
     """Phase 3, training kernels at the train shapes: A's training form and
     backward on encoder layer 1 (T=384, B=128, H=256), the decoder's
@@ -427,21 +485,7 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
     kernel_tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
     with torch.no_grad():
         free = dec_train.dec_train_reference(*d_args)
-    plain_tokens = dec_train.sampled_tokens(free, gum_sh)
-    differ = (kernel_tokens != plain_tokens) & (flag_sh > 0)
-    for b in range(B):
-        steps = torch.nonzero(differ[:, b]).flatten()
-        if len(steps):     # later steps of this row follow the first part
-            t = int(steps[0])
-            z = free[t - 1, b] + gum_sh[t, b]
-            gap = float(z[plain_tokens[t, b]] - z[kernel_tokens[t, b]])
-            print(f"dec_train row {b}: sampled tokens part at step {t}, "
-                  f"gap {gap:.3e} (near-tie limit {NEAR_TIE})")
-            if gap >= NEAR_TIE:
-                fail(f"dec_train row {b} samples another token at step "
-                     f"{t}: gap {gap}")
-    print(f"dec_train: {int((flag_sh[:, 0] > 0).sum())} sampled steps, "
-          f"{int(differ.any(0).sum())} rows part at a near-tie", flush=True)
+    near_tie_partings("dec_train", free, kernel_tokens, gum_sh, flag_sh)
 
     def plain():
         return dec_train.dec_train_reference(*d_args, sampled=kernel_tokens)
@@ -647,6 +691,221 @@ def check_lm_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True))
 
 
+def gru_layer_case(params, cfg, dev, rng, T: int, B: int) -> dict:
+    """Kernel #6's and #7's inputs on encoder layer 1 of a GRU model at
+    [T, B]: random log-mel features of lengths T/2..T (one row T), the
+    input contributions of both directions (the backward one of the
+    flipped sequence), the recurrent kernels, the flipped sequence's
+    validity mask, the training forward's saves and output gradients."""
+    F = cfg.feat_length
+    layer = params["encoder"]["layer_1"]
+    x = torch.tensor(rng.normal(size=(T, B, F)).astype(np.float32),
+                     device=dev)
+    lens = torch.tensor(rng.integers(T // 2, T + 1, size=B), device=dev)
+    lens[0] = T
+    with torch.no_grad():
+        gx_fw, cx_fw = cells.gru_precompute_inputs(layer["fw"], x, F)
+        gx_bw, cx_bw = cells.gru_precompute_inputs(layer["bw"],
+                                                   torch.flip(x, [0]), F)
+    w = {d: (layer[d]["gates"]["kernel"][F:],
+             layer[d]["candidate"]["kernel"][F:]) for d in ("fw", "bw")}
+    mask = (torch.arange(T, device=dev)[:, None]
+            >= T - lens[None, :]).float()[:, :, None]
+    bidir = (gx_fw, cx_fw, gx_bw, cx_bw, *w["fw"], *w["bw"], mask)
+    (h_fw, ru_fw, c_fw), (h_bw, ru_bw, c_bw) = (
+        gru_seq.gru_seq_reference(gx_fw, cx_fw, *w["fw"], save=True),
+        gru_seq.gru_seq_reference(gx_bw, cx_bw, *w["bw"], mask, save=True))
+    H = h_fw.shape[-1]
+    g = [torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32),
+                      device=dev) for _ in range(2)]
+    return {"x": x, "lens": lens, "bidir": bidir,
+            "masked": (gx_bw, cx_bw, *w["bw"], mask),
+            "bwd_fw": (*w["fw"], h_fw, ru_fw, c_fw, g[0], None),
+            "bwd_bw": (*w["bw"], h_bw, ru_bw, c_bw, g[1], mask)}
+
+
+def gru_ops(T: int, B: int, H: int) -> int:
+    """Operations of one GRU direction's forward over [T, B]: the gates'
+    [H, 2H] and the candidate's [H, H] product a row and step."""
+    return T * (2 * B * H * 2 * H + 2 * B * H * H)
+
+
+def check_gru_kernels(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, kernels #6 and #7 on encoder layer 1 of the GRU flagship
+    (`-gru`), each held to its plain version at the serving shape (T=512,
+    B=8) and the train shape (T=384, B=128): #6 both directions in one
+    launch (inference; its row at the serving shape), one direction with
+    the carry mask and the training form (rows at the train shape), #7
+    both directions and one direction with the mask (rows at the train
+    shape). The row's other shape is timed too (`*_shape_ms`). Library:
+    none. cuDNN's nn.GRU applies r after the recurrent product (linear
+    before reset), TF-1's GRUCell before it: another function, timed
+    beside as `cudnn_nn_gru_ms` only as a cost comparison."""
+    rng = np.random.default_rng(13)
+    H = cfg.encoder.hidden_size
+    cases = {"serving": gru_layer_case(params, cfg, dev, rng, 512, 8),
+             "train": gru_layer_case(params, cfg, dev, rng, TRAIN_T,
+                                     TRAIN_B)}
+    fwd_src = "e2e_asr_tpu_torch/csrc/gru_seq.cu"
+    bwd_src = "e2e_asr_tpu_torch/csrc/gru_bwd.cu"
+    fwd_pallas = "e2e_asr_tpu/ops/gru_pallas.py:174"
+    bwd_pallas = "e2e_asr_tpu/ops/gru_pallas.py:355"
+
+    def bidir_plain(c):
+        gx_fw, cx_fw, gx_bw, cx_bw, wg_fw, wc_fw, wg_bw, wc_bw, m = c
+        return (gru_seq.gru_seq_reference(gx_fw, cx_fw, wg_fw, wc_fw),
+                gru_seq.gru_seq_reference(gx_bw, cx_bw, wg_bw, wc_bw, m))
+
+    def bidir_train_plain(c):
+        gx_fw, cx_fw, gx_bw, cx_bw, wg_fw, wc_fw, wg_bw, wc_bw, m = c
+        return (*gru_seq.gru_seq_reference(gx_fw, cx_fw, wg_fw, wc_fw,
+                                           save=True),
+                *gru_seq.gru_seq_reference(gx_bw, cx_bw, wg_bw, wc_bw, m,
+                                           save=True))
+
+    def flat(pairs):
+        return [t for p in pairs for t in p]
+
+    # name, its row's shape, source, TPU kernel, kernel(case),
+    # plain(case), inputs(case), directions, cuDNN (bidirectional,
+    # backward). The backward's operations are twice the forward's: d(rh),
+    # dh, dW_gh and dW_ch (r | u and c are saved, not recomputed).
+    rows = [
+        ("gru_bidir", "serving", fwd_src, fwd_pallas,
+         lambda c: gru_seq.gru_seq_bidir(*c["bidir"]),
+         lambda c: bidir_plain(c["bidir"]), lambda c: c["bidir"], 2,
+         (True, False)),
+        ("gru_seq_masked", "train", fwd_src, fwd_pallas,
+         lambda c: [gru_seq.gru_seq(*c["masked"])],
+         lambda c: [gru_seq.gru_seq_reference(*c["masked"])],
+         lambda c: c["masked"], 1, (False, False)),
+        ("gru_bidir_train", "train", fwd_src, fwd_pallas,
+         lambda c: flat(gru_seq.gru_seq_bidir_train(*c["bidir"])),
+         lambda c: bidir_train_plain(c["bidir"]), lambda c: c["bidir"], 2,
+         (True, False)),
+        ("gru_bidir_bwd", "train", bwd_src, bwd_pallas,
+         lambda c: flat(gru_seq.gru_bidir_bwd(c["bwd_fw"], c["bwd_bw"])),
+         lambda c: [*gru_seq.gru_bwd_reference(*c["bwd_fw"]),
+                    *gru_seq.gru_bwd_reference(*c["bwd_bw"])],
+         lambda c: c["bwd_fw"] + c["bwd_bw"], 2, (True, True)),
+        ("gru_bwd", "train", bwd_src, bwd_pallas,
+         lambda c: gru_seq.gru_bwd(*c["bwd_bw"]),
+         lambda c: gru_seq.gru_bwd_reference(*c["bwd_bw"]),
+         lambda c: c["bwd_bw"], 1, (False, True)),
+    ]
+    with torch.no_grad():
+        for (name, shape, src, pallas, kernel, plain, inputs, dirs,
+             (both, backward)) in rows:
+            other = "train" if shape == "serving" else "serving"
+            oc = cases[other]
+            abs_err, _, _ = Recorder.hold(name, kernel(oc), plain(oc))
+            T, B = oc["x"].shape[:2]
+            other_ms = time_ms(lambda: kernel(oc), 5)
+            print(f"kernel {name} at T={T} B={B}: max_abs_err={abs_err:.3e} "
+                  f"kernel_ms={other_ms:.4f}", flush=True)
+            c = cases[shape]
+            T, B = c["x"].shape[:2]
+            got = kernel(c)
+            ops = dirs * gru_ops(T, B, H) * (2 if backward else 1)
+            with torch.enable_grad():
+                cudnn_ms = cudnn_lstm_ms(c["x"], c["lens"], H, both,
+                                         backward, rnn=torch.nn.GRU)
+            record(name, src, pallas, got, plain(c), lambda: kernel(c),
+                   lambda: plain(c), 5 if B > 8 else 20, 1,
+                   (ops, nbytes(*inputs(c), *got)), None,
+                   **{f"{other}_shape_ms": other_ms,
+                      "cudnn_nn_gru_ms": cudnn_ms})
+    print("gru kernels: library none (cuDNN's nn.GRU computes another "
+          "function: r applied after the recurrent product); "
+          "cudnn_nn_gru_ms is its time on the same shape, a cost "
+          "comparison only", flush=True)
+
+
+def check_dec_train_gru(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, kernel #10 at the GRU step's own shapes: B=128, 47 steps,
+    the char decoder (V=40) on 48 encoder frames and the phone decoder
+    (V=46) on encoder layer 3's 96, scheduled sampling on every other step
+    and dropout."""
+    rng = np.random.default_rng(14)
+    H = cfg.encoder.hidden_size
+    B, S = TRAIN_B, TRAIN_L - 1
+    for task, Te, suffix in (("char", TRAIN_T // 8, ""),
+                             ("phone", TRAIN_T // 4, "_phone")):
+        dec, dcfg = params[f"decoder_{task}"], cfg.decoders[task]
+        rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+            rng.normal(size=s).astype(np.float32) * scale, device=dev)
+        enc = rand(B, Te, 2 * H, scale=0.5)
+        enc_lens = torch.tensor(rng.integers(Te // 2, Te + 1, size=B),
+                                device=dev)
+        enc_lens[0] = Te
+        ids = torch.tensor(rng.integers(3, dcfg.vocab_size, size=(S + 1, B)),
+                           device=dev)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        _, gumbel, lm_masks, _ = attn_decoder.train_noise(gen, dcfg, S, B,
+                                                          dev)
+        flags = (torch.arange(S, device=dev) % 2).float()
+        M, G = dcfg.emb_size, dcfg.lm_hidden_size
+        lm = dec["lm_cell"]
+        with torch.no_grad():
+            x = dec["embedding"][ids][:S]
+            tgx = x @ lm["gates"]["kernel"][:M] + lm["gates"]["bias"]
+            tcx = x @ lm["candidate"]["kernel"][:M] + lm["candidate"]["bias"]
+            weights = [w.contiguous() for w in dec_train_gru.weight_args(
+                dec, M)]
+            hf = enc @ dec["attn_w"]
+        amask = (torch.arange(Te, device=dev)[None, :]
+                 < enc_lens[:, None]).float()
+        gum_sh = torch.cat([gumbel.new_zeros(1, B, dcfg.vocab_size),
+                            gumbel[:-1]])
+        flag_sh = torch.cat([flags.new_zeros(1), flags[:-1]])[:, None].expand(
+            S, B).contiguous()
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (*weights, hf, enc, tgx, tcx)]
+        args = (leaves[:19], *leaves[19:21], amask, *leaves[21:], gum_sh,
+                flag_sh, lm_masks)
+        logits = dec_train_gru.dec_train_gru(*args)
+        tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
+        with torch.no_grad():
+            free = dec_train_gru.dec_train_gru_reference(*args)
+        parted = near_tie_partings(f"dec_train_gru {task}", free, tokens,
+                                   gum_sh, flag_sh)
+
+        def plain():
+            return dec_train_gru.dec_train_gru_reference(*args,
+                                                         sampled=tokens)
+
+        D, E, A, V = (dcfg.hidden_size_dec, 2 * H, dcfg.attention_vec_size,
+                      dcfg.vocab_size)
+        products = (G * 2 * G + G * G + (G + E) * M + (M + D) * 2 * D
+                    + M * D + D * D + D * A + (D + E) * D + D * V)
+        attn = Te * A * 3 + Te * E * 2
+        inputs = nbytes(*leaves, amask, gum_sh, flag_sh, lm_masks)
+        src = "e2e_asr_tpu_torch/csrc/dec_train_gru.cu"
+        pallas = "e2e_asr_tpu/ops/dec_train_gru_pallas.py"
+        with torch.no_grad():
+            record(f"dec_train_gru_fwd{suffix}", src, f"{pallas}:323",
+                   [logits.detach()], [plain()],
+                   lambda: dec_train_gru.dec_train_gru(*args), plain, 5, 2,
+                   (S * B * (2 * products + attn), inputs + nbytes(logits)),
+                   near_tie_rows=parted)
+        dlog = rand(S, B, V)
+        got = torch.autograd.grad(logits, leaves, dlog, retain_graph=True)
+        want_out = plain()
+        want = torch.autograd.grad(want_out, leaves, dlog, retain_graph=True)
+        # The data gradients, then the weight gradients: twice the
+        # forward's products and about three times its attention work,
+        # reading the forward's saves (6G + M + 6D + A + Te + E + V floats
+        # a row and step).
+        saves = S * B * 4 * (6 * G + M + 6 * D + A + Te + E + V)
+        record(f"dec_train_gru_bwd{suffix}", src, f"{pallas}:613", got, want,
+               lambda: torch.autograd.grad(logits, leaves, dlog,
+                                           retain_graph=True),
+               lambda: torch.autograd.grad(want_out, leaves, dlog,
+                                           retain_graph=True), 5, 2,
+               (S * B * (4 * products + 3 * attn),
+                inputs + nbytes(dlog, *got) + saves))
+
+
 def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
     """Phase 4a: 24 requests through the batching engine."""
     rng = np.random.default_rng(2)
@@ -760,16 +1019,35 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "lstm_seq_masked": (lstm_seq, "MASKED_LAUNCHES"),
             "lstm_seq_train": (lstm_seq, "TRAIN_LAUNCHES"),
             "lstm_bwd_lm": (lstm_bidir, "BWD_SINGLE_LAUNCHES"),
-            "beam_mega": (beam_mega, "LAUNCHES")}
+            "beam_mega": (beam_mega, "LAUNCHES"),
+            "gru_bidir": (gru_seq, "LAUNCHES"),
+            "gru_seq_masked": (gru_seq, "MASKED_LAUNCHES"),
+            "gru_bidir_train": (gru_seq, "TRAIN_LAUNCHES"),
+            "gru_bidir_bwd": (gru_seq, "BWD_LAUNCHES"),
+            "gru_bwd": (gru_seq, "BWD_SINGLE_LAUNCHES"),
+            "dec_train_gru_fwd": (dec_train_gru, "FWD_LAUNCHES"),
+            "dec_train_gru_bwd": (dec_train_gru, "BWD_LAUNCHES"),
+            "dec_train_gru_fwd_phone": (dec_train_gru, "FWD_LAUNCHES"),
+            "dec_train_gru_bwd_phone": (dec_train_gru, "BWD_LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
+# The GRU encoder's layers take #6 both directions in one launch and #7
+# likewise (a GRU layer's one-direction forms, gru_seq_masked and gru_bwd,
+# serve forward-only layers, which no configuration here has). Rows of one
+# counter (lstm_bwd and lstm_bwd_lm, #10's char and phone rows) count the
+# same launches.
 SERVING_PATH = ("lstm_bidir", "cells_fused", "output_fused", "beam_select")
 TRAIN_PATH = ("lstm_bidir_train", "lstm_bidir_bwd", "dec_train_fwd",
               "dec_train_bwd")
 LM_PATH = ("lstm_seq_train", "lstm_bwd")
 RECIPE_PATH = TRAIN_PATH + LM_PATH + ("lstm_bidir", "cells_fused",
                                       "output_fused")
+GRU_TRAIN_PATH = ("gru_bidir_train", "gru_bidir_bwd", "dec_train_gru_fwd",
+                  "dec_train_gru_bwd")
+MIX_SERVING_PATH = ("gru_bidir",) + SERVING_PATH[1:]
+MIX_RECIPE_PATH = (GRU_TRAIN_PATH[:2] + TRAIN_PATH[2:] + LM_PATH
+                   + ("gru_bidir", "cells_fused", "output_fused"))
 
 
 def zero_launches() -> None:
@@ -814,8 +1092,9 @@ def train_batch(rng, B: int, cfg) -> dict:
 def compare_train_step(cfg, dev, lm_cfg) -> None:
     """Phase 5a: one asr_step at B=16 on the card and on the CPU, same
     params, batch and noise; teacher forcing (no sampled token can part)."""
-    dcfg = dataclasses.replace(cfg.decoders["char"], samp_prob=0.0)
-    cfg = dataclasses.replace(cfg, decoders={"char": dcfg})
+    cfg = dataclasses.replace(cfg, decoders={
+        t: dataclasses.replace(d, samp_prob=0.0)
+        for t, d in cfg.decoders.items()})
     B = 16
     batch = train_batch(np.random.default_rng(5), B, cfg)
     gen = torch.Generator().manual_seed(5)
@@ -825,8 +1104,10 @@ def compare_train_step(cfg, dev, lm_cfg) -> None:
         masks[i + 1] = dropout_mask(gen, (t, B, 2 * cfg.encoder.hidden_size),
                                     cfg.encoder.out_prob, "cpu")
         t = -(-t // cfg.encoder.skip_step) if reduce else t
-    noise = {"encoder": masks, "char": attn_decoder.train_noise(
-        gen, dcfg, TRAIN_L - 1, B, "cpu")}
+    noise = {"encoder": masks}
+    for task, dcfg in cfg.decoders.items():
+        noise[task] = attn_decoder.train_noise(gen, dcfg, TRAIN_L - 1, B,
+                                               "cpu")
     runs = []
     for where in ("cpu", dev):
         asr_step, _ = step.make_train_step(cfg, lm_cfg, device=where)
@@ -868,10 +1149,10 @@ def compare_runs(what: str, B: int, cpu_run, card_run) -> None:
         fail(f"the card's {what} disagrees with the CPU's")
 
 
-def train(cfg, dev, card: str) -> dict:
+def train(cfg, dev, card: str, path=None, label: str = "training") -> dict:
     """Phase 5: (a) card vs CPU at B=16, (b) three steps at the bench's
-    train shape, (c) their time. Returns the launches of the training
-    kernels in (b) alone."""
+    train shape, every kernel of `path` launched, (c) their time. Returns
+    the launches of the training kernels in (b) alone."""
     lm_cfg = LMConfig(vocab_size=cfg.decoders["char"].vocab_size)
     compare_train_step(cfg, dev, lm_cfg)
     params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -889,13 +1170,13 @@ def train(cfg, dev, card: str) -> dict:
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = read_launches("ASR training", TRAIN_PATH)
+    launches = read_launches(label, path or TRAIN_PATH)
     if not all(np.isfinite(losses)) or int(state.global_step) != 3:
         fail(f"training losses {losses}, global_step "
              f"{int(state.global_step)}")
     frames = int(batch["logmel_len"].sum())
     steady = float(np.mean(times[1:]))
-    print(f"training B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} ({card}): losses "
+    print(f"{label} B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} ({card}): losses "
           f"{losses}; step times {[round(t * 1e3, 2) for t in times]} ms; "
           f"steady step {steady * 1e3:.2f} ms, {frames / steady:.0f} "
           f"frames/s ({TRAIN_B * TRAIN_T / steady:.0f} padded frames/s)",
@@ -1005,10 +1286,13 @@ def train_lm_multitask(dev, card) -> dict:
     return launches
 
 
-def recipe(dev, card) -> dict:
+def recipe(dev, card, cells: str = "lstm") -> dict:
     """Phase 6: train a synthetic corpus at the flagship shape with the
-    port's Trainer, evaluate, save, and resume in a second Trainer.
-    Returns the launches of the training run."""
+    port's Trainer, evaluate, save, and resume in a second Trainer
+    (`cells` as flagship_cfg's). With cells="gru_encoder", then also
+    evaluate the trained model on the dev set at a batch of 1 through
+    BeamEvaluator (beam 4: one #15 launch per utterance). Returns the
+    launches of each run."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.monotonic()
         sizes = synth.make_vocab_dir(os.path.join(root, "vocab"))
@@ -1034,8 +1318,9 @@ def recipe(dev, card) -> dict:
             best_model_dir=os.path.join(root, "best"), lm_prob=0.5,
             steps_per_checkpoint=3, compute_dtype="float32")
         cfg = ExperimentConfig(
-            model=flagship_cfg(sizes["char"], sizes["phone"]),
+            model=flagship_cfg(sizes["char"], sizes["phone"], cells),
             train=train_cfg, lm=LMConfig(vocab_size=sizes["char"]))
+        name = "recipe" if cells == "lstm" else f"recipe {cells}"
         trainer = Trainer(cfg, device=dev)
         losses = {"asr": [], "lm": []}
 
@@ -1053,22 +1338,23 @@ def recipe(dev, card) -> dict:
         state = trainer.train()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = read_launches("recipe", RECIPE_PATH)
+        runs = {name: read_launches(name, RECIPE_PATH if cells == "lstm"
+                                    else MIX_RECIPE_PATH)}
         asr = [float(x) for x in losses["asr"]]
         lm = [float(x) for x in losses["lm"]]
         with open(os.path.join(train_cfg.train_dir, "asr_err.txt")) as f:
             errs = [float(x) for x in f.read().split()]
-        print(f"recipe ({card}): {int(state.global_step)} ASR steps, "
+        print(f"{name} ({card}): {int(state.global_step)} ASR steps, "
               f"{int(state.lm_global_step)} LM steps, "
               f"{int(state.lm_epoch)} LM epochs; ASR losses "
               f"{[round(x, 4) for x in asr]}; LM losses "
               f"{[round(x, 4) for x in lm]}; dev WER {errs}; wall "
               f"{wall:.1f} s", flush=True)
         if not (asr and lm and np.isfinite(asr + lm).all()):
-            fail(f"recipe losses: ASR {asr}, LM {lm}")
+            fail(f"{name} losses: ASR {asr}, LM {lm}")
         found = checkpoint.restore_latest(train_cfg.train_dir)
         if found is None or len(errs) != 2 or int(state.global_step) != 6:
-            fail(f"recipe: {len(errs)} dev evaluations, global step "
+            fail(f"{name}: {len(errs)} dev evaluations, global step "
                  f"{int(state.global_step)}, checkpoint {found is not None}")
         named = found[0]
         second = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
@@ -1077,9 +1363,81 @@ def recipe(dev, card) -> dict:
         if not (resumed.keys() == named.keys() and all(
                 np.array_equal(resumed[k], v) for k, v in named.items())):
             fail("the second Trainer did not resume the saved state")
-        print(f"recipe: checkpoint of step {int(named['global_step'])} "
+        print(f"{name}: checkpoint of step {int(named['global_step'])} "
               f"written and resumed by a second Trainer ({len(named)} "
               f"leaves equal)", flush=True)
+        if cells == "gru_encoder":
+            runs["beam eval gru_encoder"] = beam_eval_batch1(
+                cfg, state.params, root, dev, card)
+    return runs
+
+
+def beam_eval_batch1(cfg, params, root: str, dev, card: str) -> dict:
+    """BeamEvaluator over the dev set of a recipe run (64 utterances) at a
+    batch of 1, beam 4: kernel #15's route, one launch an utterance, and
+    no per-step kernel. Returns the launches."""
+    dev_set = SpeechDataset([os.path.join(root, "data", "dev.0001")], 1, 80,
+                            is_training=False, tasks=("char",))
+    _, rev_vocab = text.initialize_vocabulary(
+        os.path.join(root, "vocab", "char.vocab"))
+    out_dir = os.path.join(root, "beam")
+    evaluator = beam_eval.BeamEvaluator(
+        cfg.model, BeamConfig(beam_size=4, max_steps=120), rev_vocab,
+        out_dir, device=dev)
+    zero_launches()
+    t0 = time.monotonic()
+    wer = evaluator(params, dev_set.epoch())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches("beam eval gru_encoder", ("gru_bidir",
+                                                       "beam_mega"))
+    if launches["beam_mega"] != 64 or any(
+            launches[k] for k in ("cells_fused", "output_fused",
+                                  "beam_select")):
+        fail(f"beam eval at batch 1: {launches['beam_mega']} #15 launches "
+             "for 64 utterances, or a per-step kernel launched")
+    with open(os.path.join(out_dir, "raw_4.txt")) as f:
+        if len(f.read().splitlines()) != 64:
+            fail("beam eval at batch 1: not 64 hypotheses")
+    print(f"beam eval gru_encoder ({card}): 64 dev utterances at batch 1, "
+          f"beam 4, WER {wer:.4f}, wall {wall:.2f} s", flush=True)
+    return launches
+
+
+def train_gru(dev, card) -> dict:
+    """Phase 8: the `-gru` family's char + phone asr_step (GRU encoder and
+    decoders, kernels #6, #7 and #10): (a) card vs CPU at B=16, (b) three
+    steps at B=128, T=384, L=48, every loss finite, (c) their time, then
+    the device-busy share and per-kernel split of one step
+    (tools/prof_port.py). Returns the launches of (b)."""
+    cfg = flagship_cfg(40, PHONE_VOCAB, "gru")
+    launches = train(cfg, dev, card, GRU_TRAIN_PATH,
+                     "GRU training (-gru char + phone)")
+    if (launches["dec_train_gru_fwd"], launches["dec_train_gru_bwd"]) != (
+            6, 6):
+        fail("the char and phone GRU decoders did not both run kernel #10 "
+             "every step")
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import prof_port
+    prof_port.profile_train(cfg, dev, "gru_step")
+    return launches
+
+
+def serve_gru_encoder(dev, card, rev_vocab) -> dict:
+    """Phase 9: the flagship with a GRU encoder under the LSTM decoders
+    (random weights from seed 0) serves 24 requests, and one batch decoded
+    on the card equals the CPU's (as phase 4). Returns the launches."""
+    cfg = flagship_cfg(cells="gru_encoder")
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    with torch.no_grad():
+        zero_launches()
+        feats, texts, stats = serve(params, cfg, dev, rev_vocab)
+        launches = read_launches("serving gru_encoder", MIX_SERVING_PATH)
+        print(f"serving gru_encoder ({card}): {json.dumps(stats)}")
+        if len(texts) != 24 or not all(isinstance(t, str) for t in texts):
+            fail("not every request got a transcript")
+        compare_cpu(params, cfg, feats)
     return launches
 
 
@@ -1244,6 +1602,12 @@ def main() -> int:
     check_train_kernels(params, cfg, dev, record)
     check_lm_kernels(params, cfg, dev, record)
     check_mega(params, cfg, dev, record)
+    gru_cfg = flagship_cfg(40, PHONE_VOCAB, "gru")
+    gru_params = seq2seq.init(torch.Generator().manual_seed(0), gru_cfg,
+                              device=dev)
+    check_gru_kernels(gru_params, gru_cfg, dev, record)
+    check_dec_train_gru(gru_params, gru_cfg, dev, record)
+    del gru_params
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
@@ -1264,10 +1628,18 @@ def main() -> int:
     paths["lm_multitask"] = train_lm_multitask(dev, card)
 
     # 6. recipe
-    paths["recipe"] = recipe(dev, card)
+    paths.update(recipe(dev, card))
 
     # 7. entry points
     paths.update(entry_points(dev, card))
+
+    # 8. the GRU family's train step (-gru)
+    paths["gru"] = train_gru(dev, card)
+
+    # 9. a GRU encoder under the LSTM decoders: Trainer (train, greedy dev
+    # WER, save, resume), beam evaluation at a batch of 1, serving
+    paths.update(recipe(dev, card, "gru_encoder"))
+    paths["serving gru_encoder"] = serve_gru_encoder(dev, card, rev_vocab)
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"kernels": record.rows}))

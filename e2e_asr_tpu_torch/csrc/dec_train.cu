@@ -44,7 +44,9 @@
 // grid takes the 64 x 64 tiles of every dW, and the block that owns a tile
 // accumulates it over all rows and steps of the saved activations and
 // step gradients and writes it once. No atomics; the order is fixed.
-#include "tiles.cuh"
+// Sampling, the attention and its backward, and the weight-gradient tiles
+// live in dec_train.cuh, shared with the GRU decoder's kernel #10.
+#include "dec_train.cuh"
 
 namespace {
 
@@ -57,67 +59,20 @@ struct FwdArgs {
   int S, B, G, D, M, E, A, V, T;
 };
 
-__device__ __forceinline__ const float* row_prev(const float* save, int t,
-                                                 int B, int width,
-                                                 const float* zeros) {
-  return t > 0 ? save + static_cast<size_t>(t - 1) * B * width : zeros;
-}
-
-__device__ __forceinline__ size_t at(int t, int n, int B, int width) {
-  return (static_cast<size_t>(t) * B + n) * width;
-}
-
-// Sampled index of row n at step t: argmax over v of logits[t-1] + gumbel,
-// lowest index on ties.
-__device__ int sample_row(const FwdArgs& p, int t, int n) {
-  const int lane = threadIdx.x & 31;
-  const float* lg = p.logits + at(t - 1, n, p.B, p.V);
-  const float* gm = p.gum + at(t, n, p.B, p.V);
-  float best = -INFINITY;
-  int idx = p.V;
-  for (int v = lane; v < p.V; v += 32) {
-    const float z = __ldcg(lg + v) + __ldg(gm + v);
-    if (z > best || (z == best && v < idx)) {
-      best = z;
-      idx = v;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-  return idx < p.V ? idx : 0;
-}
-
 __global__ void __launch_bounds__(kThreads) dec_train_fwd_kernel(FwdArgs p) {
   __shared__ float smem[kSmem];
   __shared__ int sidx[kRows];
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, G = p.G, D = p.D, E = p.E, A = p.A, V = p.V, T = p.T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t = 0; t < p.S; ++t) {
     // F1: LM cell.
     const bool samp = p.gum != nullptr && t > 0;
     const int utiles = (G + kCols - 1) / kCols;
     for (int tile = blockIdx.x; tile < num_tiles(G, B); tile += gridDim.x) {
       const int n0 = (tile / utiles) * kRows;
-      if (samp) {
-        if (warp < kRows && n0 + warp < B) {
-          const int n = n0 + warp;
-          const int idx = sample_row(p, t, n);
-          if (lane == 0) sidx[warp] = idx;
-          if (tile % utiles == 0) {
-            const float fl = __ldg(p.flag + static_cast<size_t>(t) * B + n);
-            for (int v = lane; v < V; v += 32)
-              p.oh[at(t, n, B, V) + v] = v == idx ? fl : 0.f;
-          }
-        }
-        __syncthreads();
-      }
+      if (samp)
+        sample_tile(p.logits, p.gum, p.flag, p.oh, t, n0, B, V,
+                    tile % utiles == 0, sidx);
       lstm_tile_ep(
           nullptr, 0, row_prev(p.hlm, t, B, G, p.zeros), G, G, p.wlmh, B,
           tile, smem,
@@ -178,54 +133,9 @@ __global__ void __launch_bounds__(kThreads) dec_train_fwd_kernel(FwdArgs p) {
                  p.y + at(t, 0, B, A), B, tile, smem);
     grid.sync();
     // F5: attention, one block per batch row.
-    for (int n = blockIdx.x; n < B; n += gridDim.x) {
-      float* ys = smem;      // [A]
-      float* sc = smem + A;  // [T] scores, then alpha
-      for (int a = threadIdx.x; a < A; a += blockDim.x)
-        ys[a] = __ldcg(p.y + at(t, n, B, A) + a);
-      __syncthreads();
-      for (int tt = warp; tt < T; tt += kWarps) {
-        const float* h = p.hf + (static_cast<size_t>(n) * T + tt) * A;
-        float s = 0.f;
-        for (int a = lane; a < A; a += 32)
-          s += __ldg(p.v + a) * tanhf(__ldg(h + a) + ys[a]);
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) sc[tt] = s;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const float* am = p.amask + static_cast<size_t>(n) * T;
-        float m = -INFINITY;
-        for (int tt = lane; tt < T; tt += 32)
-          m = fmaxf(m, __ldg(am + tt) > 0.f ? sc[tt] : e2e::kNegInf);
-        for (int off = 16; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        float z = 0.f;
-        for (int tt = lane; tt < T; tt += 32) {
-          const float s = __ldg(am + tt) > 0.f ? sc[tt] : e2e::kNegInf;
-          const float e = expf(s - m) * __ldg(am + tt);
-          sc[tt] = e;
-          z += e;
-        }
-        for (int off = 16; off > 0; off >>= 1)
-          z += __shfl_xor_sync(0xffffffffu, z, off);
-        __syncwarp();
-        for (int tt = lane; tt < T; tt += 32) {
-          const float al = sc[tt] / z;
-          sc[tt] = al;
-          p.alpha[at(t, n, B, T) + tt] = al;
-        }
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < E; e += blockDim.x) {
-        const float* en = p.enc + static_cast<size_t>(n) * T * E + e;
-        float s = 0.f;
-        for (int tt = 0; tt < T; ++tt) s += sc[tt] * __ldg(en + tt * E);
-        p.ctx[at(t, n, B, E) + e] = s;
-      }
-      __syncthreads();
-    }
+    for (int n = blockIdx.x; n < B; n += gridDim.x)
+      attention_row(p.hf, p.enc, p.amask, p.v, p.y, p.alpha, p.ctx, t, n, B,
+                    T, A, E, smem);
     grid.sync();
     // F6: proj = [c_dec | ctx] @ W_ap + b_ap.
     for (int tile = blockIdx.x; tile < num_tiles(D, B); tile += gridDim.x)
@@ -240,22 +150,7 @@ __global__ void __launch_bounds__(kThreads) dec_train_fwd_kernel(FwdArgs p) {
   }
 }
 
-// One weight gradient dW[k, c] = sum over rows r of X[r, k] * dG[r, c],
-// X = [x1 | x2] (k1 + k2 columns; x of row r is row r - shift, zero before
-// the first), or a column of ones (bias gradients; x1 null, k1 = 1).
-struct WJob {
-  const float* x1;
-  int k1, shift1;
-  const float* x2;
-  int k2, shift2;
-  bool ones;
-  const float* g;
-  int n, rows;
-  float* out;
-};
-
 constexpr int kJobs = 13;
-constexpr int kWT = 64, kWD = 16;
 
 struct BwdArgs {
   const float *opwT, *apwT, *qwT, *decwT, *ipwT, *wlmhT, *v;
@@ -268,63 +163,6 @@ struct BwdArgs {
   WJob jobs[kJobs];
   int S, B, G, D, M, E, A, V, T;
 };
-
-__device__ __forceinline__ float wjob_x(const WJob& j, int r, int k) {
-  if (k < j.k1) {
-    if (j.ones) return 1.f;
-    if (j.x1 == nullptr || r < j.shift1) return 0.f;
-    return __ldcg(j.x1 + static_cast<size_t>(r - j.shift1) * j.k1 + k);
-  }
-  if (r < j.shift2) return 0.f;
-  return __ldcg(j.x2 + static_cast<size_t>(r - j.shift2) * j.k2 + k - j.k1);
-}
-
-__device__ __forceinline__ int wjob_tiles(const WJob& j) {
-  return (j.k1 + j.k2 + kWT - 1) / kWT * ((j.n + kWT - 1) / kWT);
-}
-
-__device__ void wjob_tile(const WJob& j, int tile, float* smem) {
-  float* xs = smem;              // [kWD][kWT]
-  float* gs = smem + kWD * kWT;  // [kWD][kWT]
-  const int K = j.k1 + j.k2, ntiles = (j.n + kWT - 1) / kWT;
-  const int m0 = (tile / ntiles) * kWT, c0 = (tile % ntiles) * kWT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int rb = 0; rb < j.rows; rb += kWD) {
-    for (int i = threadIdx.x; i < kWD * kWT; i += blockDim.x) {
-      const int rr = i / kWT, col = i % kWT, r = rb + rr;
-      const bool in = r < j.rows;
-      xs[i] = in && m0 + col < K ? wjob_x(j, r, m0 + col) : 0.f;
-      gs[i] = in && c0 + col < j.n
-                  ? __ldcg(j.g + static_cast<size_t>(r) * j.n + c0 + col)
-                  : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kWD; ++rr) {
-      float x[4], g[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        x[q] = xs[rr * kWT + ty + 16 * q];
-        g[q] = gs[rr * kWT + tx + 16 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], g[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = m0 + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + tx + 16 * b;
-      if (m < K && c < j.n) j.out[static_cast<size_t>(m) * j.n + c] = acc[a][b];
-    }
-  }
-}
 
 __device__ __forceinline__ void lstm_cell_bwd(const float* gates, int H, int u,
                                               float c_prev, float c_cur,
@@ -347,7 +185,6 @@ __global__ void __launch_bounds__(kThreads) dec_train_bwd_kernel(BwdArgs p) {
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, G = p.G, D = p.D, M = p.M, E = p.E, A = p.A, V = p.V,
             T = p.T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   {  // zero the carries and the accumulators
     const size_t tid = blockIdx.x * blockDim.x + threadIdx.x;
     const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
@@ -383,57 +220,11 @@ __global__ void __launch_bounds__(kThreads) dec_train_bwd_kernel(BwdArgs p) {
                     });
     grid.sync();
     // B3: attention backward, one block per batch row.
-    for (int n = blockIdx.x; n < B; n += gridDim.x) {
-      float* dct = smem;      // [E] dctx_total
-      float* al = dct + E;    // [T] alpha
-      float* ds = al + T;     // [T] dalpha, then ds
-      float* inner = ds + T;  // [1]
-      for (int e = threadIdx.x; e < E; e += blockDim.x)
-        dct[e] = __ldcg(p.s2 + static_cast<size_t>(n) * (D + E) + D + e) +
-                 __ldcg(p.dctx + static_cast<size_t>(n) * E + e);
-      for (int tt = threadIdx.x; tt < T; tt += blockDim.x)
-        al[tt] = __ldg(p.alpha + at(t, n, B, T) + tt);
-      __syncthreads();
-      float* denc = p.denc + static_cast<size_t>(n) * T * E;
-      for (int i = threadIdx.x; i < T * E; i += blockDim.x)
-        denc[i] += al[i / E] * dct[i % E];
-      for (int tt = warp; tt < T; tt += kWarps) {
-        const float* en = p.enc + (static_cast<size_t>(n) * T + tt) * E;
-        float s = 0.f;
-        for (int e = lane; e < E; e += 32) s += dct[e] * __ldg(en + e);
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) ds[tt] = s;
-      }
-      if (warp == kWarps - 1) {
-        const float* cx = p.ctx + at(t, n, B, E);
-        float s = 0.f;
-        for (int e = lane; e < E; e += 32) s += dct[e] * __ldg(cx + e);
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) inner[0] = s;
-      }
-      __syncthreads();
-      for (int tt = threadIdx.x; tt < T; tt += blockDim.x)
-        ds[tt] = al[tt] * (ds[tt] - inner[0]);
-      __syncthreads();
-      for (int a = threadIdx.x; a < A; a += blockDim.x) {
-        const float ya = __ldg(p.y + at(t, n, B, A) + a);
-        const float va = __ldg(p.v + a);
-        float dv = 0.f, dy = 0.f;
-        for (int tt = 0; tt < T; ++tt) {
-          const size_t o = (static_cast<size_t>(n) * T + tt) * A + a;
-          const float th = tanhf(__ldg(p.hf + o) + ya);
-          const float dpre = ds[tt] * (va * (1.f - th * th));
-          dv += ds[tt] * th;
-          p.dhf[o] += dpre;
-          dy += dpre;
-        }
-        p.dv_rows[static_cast<size_t>(n) * A + a] += dv;
-        p.dy[at(t, n, B, A) + a] = dy;
-      }
-      __syncthreads();
-    }
+    for (int n = blockIdx.x; n < B; n += gridDim.x)
+      attention_row_bwd(p.hf, p.enc, p.v, p.y, p.alpha, p.ctx,
+                        p.s2 + static_cast<size_t>(n) * (D + E) + D,
+                        p.dctx + static_cast<size_t>(n) * E, p.dhf, p.denc,
+                        p.dv_rows, p.dy, t, n, B, T, A, E, smem);
     grid.sync();
     // B4: decoder-cell backward; dc_direct += dy @ W_q^T.
     for (int tile = blockIdx.x; tile < num_tiles(D, B); tile += gridDim.x)
@@ -508,13 +299,7 @@ __global__ void __launch_bounds__(kThreads) dec_train_bwd_kernel(BwdArgs p) {
     grid.sync();
   }
   // Weight gradients: every tile of every dW, each by one block.
-  int total = 0;
-  for (int i = 0; i < kJobs; ++i) total += wjob_tiles(p.jobs[i]);
-  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
-    int i = 0, rest = tile;
-    while (rest >= wjob_tiles(p.jobs[i])) rest -= wjob_tiles(p.jobs[i++]);
-    wjob_tile(p.jobs[i], rest, smem);
-  }
+  run_wjobs(p.jobs, kJobs, smem);
 }
 
 }  // namespace

@@ -22,12 +22,11 @@
 // shuffle sum. Steps where the backward direction is invalid (its mask is
 // 0: leading padding of the flipped sequence) pass dh and dc through and
 // give zero dgates, as the reference's carry-through does (:765-766). The
-// chain writes dgates, which is dx_proj. (2) the dW kernel, a tiled
-// reduction over the T*B rows of h_{t-1} and dgates: 64 x 64 output tiles,
-// 4 x 4 outputs a thread, 16 rows a stage in shared memory, the rows split
-// over `splits` blocks into a partial buffer that (3) a last kernel sums in
-// a fixed order: no atomics, the same result every run.
-#include "common.cuh"
+// chain writes dgates, which is dx_proj. (2) dW_h, the tiled reduction of
+// csrc/dw.cuh over the T*B rows of h_{t-1} and dgates, split over `splits`
+// blocks and summed in a fixed order: no atomics, the same result every
+// run.
+#include "dw.cuh"
 
 namespace {
 
@@ -128,86 +127,6 @@ __global__ void __launch_bounds__(1024) lstm_bwd_chain_kernel(ChainArgs a) {
   }
 }
 
-// dW partials: part[split][m][n] = sum over this split's rows r of
-// h_{t-1}[r, m] * dx[r, n], rows r = t*B + b; h_{t-1} of row r is h[r - B]
-// (zero for t = 0).
-struct DwDir {
-  const float *h, *dx;
-  float* part;  // [splits][H][4H]
-};
-
-struct DwArgs {
-  DwDir dir[2];
-  int R, B, H, splits;
-};
-
-constexpr int kTile = 64, kDepth = 16;
-
-__global__ void __launch_bounds__(256) lstm_dw_kernel(DwArgs a) {
-  __shared__ float xs[kDepth][kTile];
-  __shared__ float gs[kDepth][kTile];
-  const DwDir d = a.dir[blockIdx.z / a.splits];
-  const int split = blockIdx.z % a.splits;
-  const int H = a.H, N = 4 * H;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int per = (a.R + a.splits - 1) / a.splits;
-  const int r0 = split * per, r1 = min(a.R, r0 + per);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int rb = r0; rb < r1; rb += kDepth) {
-    for (int i = threadIdx.x; i < kDepth * kTile; i += blockDim.x) {
-      const int rr = i / kTile, col = i % kTile, r = rb + rr;
-      const bool in = r < r1;
-      xs[rr][col] = in && r >= a.B && m0 + col < H
-                        ? d.h[static_cast<size_t>(r - a.B) * H + m0 + col]
-                        : 0.f;
-      gs[rr][col] = in && n0 + col < N
-                        ? d.dx[static_cast<size_t>(r) * N + n0 + col]
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kDepth; ++rr) {
-      float x[4], g[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        x[q] = xs[rr][ty + 16 * q];
-        g[q] = gs[rr][tx + 16 * q];
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(x[p], g[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-  float* out = d.part + static_cast<size_t>(split) * H * N;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int m = m0 + ty + 16 * p;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx + 16 * q;
-      if (m < H && n < N) out[static_cast<size_t>(m) * N + n] = acc[p][q];
-    }
-  }
-}
-
-// dw[i] = sum over s of part[s][i], in order.
-__global__ void lstm_dw_sum_kernel(const float* part0, const float* part1,
-                                   float* dw0, float* dw1, int size,
-                                   int splits) {
-  const float* part = blockIdx.y == 0 ? part0 : part1;
-  float* dw = blockIdx.y == 0 ? dw0 : dw1;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < size;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < splits; ++q)
-      s += part[static_cast<size_t>(q) * size + i];
-    dw[i] = s;
-  }
-}
-
 int chain_slices(int H) {
   const int Hp = (H + 31) / 32 * 32;
   return max(1, min(4, 1024 / Hp));
@@ -235,11 +154,12 @@ E2E_EXPORT int e2e_lstm_bwd(const void* const* ptrs, int n_dirs, int T, int B,
     return static_cast<float*>(const_cast<void*>(ptrs[9 * d + i]));
   };
   ChainArgs ca{};
-  DwArgs da{};
+  e2e::DwJobs da{};
   for (int d = 0; d < n_dirs; ++d) {
     ca.dir[d] = {in(d, 0), in(d, 1), in(d, 2), in(d, 3), in(d, 4), in(d, 5),
                  out(d, 6)};
-    da.dir[d] = {in(d, 1), out(d, 6), out(d, 8)};
+    // dW_h = sum over rows of h_{t-1}^T dgates: h shifted by one step.
+    da.job[d] = {in(d, 1), out(d, 6), B, H, 4 * H, out(d, 8), out(d, 7)};
   }
   ca.T = T;
   ca.B = B;
@@ -251,18 +171,8 @@ E2E_EXPORT int e2e_lstm_bwd(const void* const* ptrs, int n_dirs, int T, int B,
   lstm_bwd_chain_kernel<<<dim3(B, n_dirs), Hp * ca.S, smem, stream>>>(ca);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  da.n = n_dirs;
   da.R = T * B;
-  da.B = B;
-  da.H = H;
   da.splits = splits;
-  lstm_dw_kernel<<<dim3((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile,
-                        splits * n_dirs),
-                   256, 0, stream>>>(da);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int size = 4 * H * H;
-  lstm_dw_sum_kernel<<<dim3((size + 255) / 256, n_dirs), 256, 0, stream>>>(
-      out(0, 8), out(n_dirs - 1, 8), out(0, 7), out(n_dirs - 1, 7), size,
-      splits);
-  return cudaGetLastError();
+  return e2e::launch_dw(da, stream);
 }

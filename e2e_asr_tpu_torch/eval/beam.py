@@ -43,7 +43,7 @@ from e2e_asr_tpu_torch.config import BeamConfig, DecoderConfig
 def check_supported(dec_cfg: DecoderConfig, beam_cfg: BeamConfig, *,
                     lm_params=None, return_nbest: bool = False,
                     ctc_scorer=None, bias=None) -> None:
-    attn_decoder.check_supported(dec_cfg)
+    attn_decoder.check_decodable(dec_cfg)
     todo = "is not ported yet (ROADMAP.md Queue 1, 'Decode features')"
     if lm_params is not None or beam_cfg.lm_weight != 0.0:
         raise NotImplementedError(f"RNN-LM shallow fusion {todo}")

@@ -22,7 +22,7 @@ from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.eval import score as score_lib
 from e2e_asr_tpu_torch.eval.score import WerAccumulator
-from e2e_asr_tpu_torch.models import seq2seq
+from e2e_asr_tpu_torch.models import attn_decoder, seq2seq
 
 
 class GreedyEvaluator:
@@ -36,6 +36,7 @@ class GreedyEvaluator:
         """Decodes on `device` (default: the CUDA card; raises without
         one)."""
         seq2seq.check_supported(cfg)
+        attn_decoder.check_decodable(cfg.decoders["char"])
         if mesh is not None:
             raise NotImplementedError("the data-parallel decode mesh is not "
                                       "ported yet (ROADMAP.md Queue 1, "

@@ -23,7 +23,7 @@ stages (details in the source). Its own limits, which eval/beam.py checks
 from the shapes before it takes this route (`fits`): beam size k <= 16,
 k * V <= 8192 candidates (they sit in the selection block's shared
 memory), at most 8 decoder layers. LSTM cells in float32; the GRU branch
-raises (ROADMAP.md Queue 1, "GRU option").
+raises (ROADMAP.md Queue 1, "GRU decode").
 
 `trace=True` also returns each step's selection, {"vals" [steps, B, k]
 float32, "parent", "token" [steps, B, k] int32}, for holding the kernel to
@@ -54,7 +54,7 @@ def fits(beam_size: int, vocab_size: int, num_layers: int) -> bool:
 def _check(cfg) -> None:
     if not cfg.use_lstm:
         raise NotImplementedError("GRU decoder cells are not ported yet "
-                                  "(ROADMAP.md Queue 1, 'GRU option')")
+                                  "(ROADMAP.md Queue 1, 'GRU decode')")
 
 
 def _out_proj(params: dict, cfg) -> dict:

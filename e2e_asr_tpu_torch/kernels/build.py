@@ -38,8 +38,12 @@ _SIGNATURES = {
     "e2e_lstm_bidir_fwd_train": [_P] * 9 + [_I, _I, _I, _P],
     "e2e_lstm_bwd": [_P, _I, _I, _I, _I, _I, _P],
     "e2e_lstm_seq_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "e2e_gru_fwd": [_P, _I, _I, _I, _I, _P],
+    "e2e_gru_bwd": [_P, _I, _I, _I, _I, _I, _P],
     "e2e_dec_train_fwd": [_P, _I, _P, _P],
     "e2e_dec_train_bwd": [_P, _I, _P, _P],
+    "e2e_dec_train_gru_fwd": [_P, _I, _P, _P],
+    "e2e_dec_train_gru_bwd": [_P, _I, _P, _P],
     "e2e_cells_fused": [_P, _I, _P, _I, _P],
     "e2e_output_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "e2e_beam_select": [_P, _P, _P, _P, _I, _I, _I, _I,

@@ -26,7 +26,7 @@ log_softmax in place in global memory, one warp per row. Tensor cores (wgmma) an
 across steps are later work.
 
 Only LSTM cells in float32: the GRU branch and bf16 matmuls raise
-NotImplementedError (ROADMAP.md Queue 1, "GRU option" and "Decode
+NotImplementedError (ROADMAP.md Queue 1, "GRU decode" and "Decode
 features").
 """
 from __future__ import annotations
@@ -44,7 +44,7 @@ OUTPUT_LAUNCHES = 0
 def _check_options(use_lstm: bool, bf16: bool) -> None:
     if not use_lstm:
         raise NotImplementedError("GRU decoder cells are not ported yet "
-                                  "(ROADMAP.md Queue 1, 'GRU option')")
+                                  "(ROADMAP.md Queue 1, 'GRU decode')")
     if bf16:
         raise NotImplementedError("bf16 decode matmuls are not ported yet "
                                   "(ROADMAP.md Queue 1, 'Decode features')")

@@ -42,8 +42,8 @@ W_NAMES = ("ewb", "wlmh", "ipw", "ipb", "decw", "decb", "qw", "qb", "v",
 
 
 def check_supported(params: dict) -> None:
-    """LSTM decoder params (GRU ones never get here: attn_decoder.init and
-    apply_train raise for them) of one layer without SimpleProjection."""
+    """LSTM decoder params (GRU decoders take kernels/dec_train_gru.py) of
+    one layer without SimpleProjection."""
     if len(params["dec_cells"]) != 1 or "simple_proj" in params:
         raise NotImplementedError(
             "the fused training decoder takes one decoder layer and no "

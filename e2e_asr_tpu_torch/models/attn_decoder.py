@@ -1,4 +1,4 @@
-"""Bahdanau-attention LSTM decoder (port of e2e_asr_tpu/models/
+"""Bahdanau-attention LSTM or GRU decoder (port of e2e_asr_tpu/models/
 attn_decoder.py): parameters, attention, the step and the teacher-forced
 training pass.
 
@@ -9,13 +9,15 @@ Per-step structure, order preserved from the reference:
   -> decoder LSTM cells (1..N layers)
   -> attention over the precomputed W*h_enc with a masked softmax
   -> AttnProjection of [query, context] -> OutputProjection logits.
-The attention query is the top cell's **c** state. At inference the step
-is kernels B and C around the attention (eval/beam.py, and the greedy
-`apply_infer_early`). In training,
-`apply_train` runs all steps with scheduled sampling (one coin per step for
-the whole batch, gumbel-max sampling from the previous step's logits) and
-dropout: as the plain scan over `step` on the CPU, and as the fused
-training kernels (kernels/dec_train.py) on the card.
+The attention query is the top cell's **c** state for LSTM cells and its
+**h** for GRU cells (TF-1 GRUCell; reference decoder.py:64-82). At
+inference the step is kernels B and C around the attention (eval/beam.py,
+and the greedy `apply_infer_early`); GRU decoders do not decode yet
+(`check_decodable`). In training, `apply_train` runs all steps with
+scheduled sampling (one coin per step for the whole batch, gumbel-max
+sampling from the previous step's logits) and dropout: as the plain scan
+over `step` on the CPU, and as the fused training kernels on the card
+(kernels/dec_train.py for LSTM cells, kernels/dec_train_gru.py for GRU).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.core.layers import (dense, dense_params,
                                            glorot_uniform, uniform_init)
 from e2e_asr_tpu_torch.data.text import EOS_ID
-from e2e_asr_tpu_torch.kernels import dec_step, dec_train
+from e2e_asr_tpu_torch.kernels import dec_step, dec_train, dec_train_gru
 
 NEG_INF = -1e30
 
@@ -42,8 +44,8 @@ class AttnContext(NamedTuple):
 
 class DecState(NamedTuple):
     """Per-step decoder carry (everything but the next input embedding)."""
-    cell_states: tuple             # LSTMState per decoder layer
-    lm_state: cells.LSTMState
+    cell_states: tuple             # LSTMState (GRU: h) per decoder layer
+    lm_state: cells.LSTMState | torch.Tensor
     context: torch.Tensor          # [B, H_enc] previous attention context
     alpha: torch.Tensor            # [B, T_enc] previous attention weights
 
@@ -52,9 +54,16 @@ def check_supported(cfg: DecoderConfig) -> None:
     if cfg.decoder_type != "rnn":
         raise NotImplementedError("the transformer decoder is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Transformer family')")
+
+
+def check_decodable(cfg: DecoderConfig) -> None:
+    """Decoding (greedy, beam, serving) takes LSTM decoders: the GRU
+    branches of kernels #11 and #15 come with the GRU decode."""
+    check_supported(cfg)
     if not cfg.use_lstm:
-        raise NotImplementedError("GRU decoders are not ported yet "
-                                  "(ROADMAP.md Queue 1, 'GRU option')")
+        raise NotImplementedError(
+            "decoding GRU decoders (the GRU branches of kernels #11 and "
+            "#15) is not ported yet (ROADMAP.md Queue 1, 'GRU decode')")
 
 
 def init(gen: torch.Generator, cfg: DecoderConfig, attn_size: int, *,
@@ -62,11 +71,12 @@ def init(gen: torch.Generator, cfg: DecoderConfig, attn_size: int, *,
     """attn_size: encoder output width (2*hidden for bidir encoders)."""
     check_supported(cfg)
     hid = cfg.hidden_size_dec
+    cell_init = cells.lstm_init if cfg.use_lstm else cells.gru_init
     params: dict = {
         "embedding": uniform_init(gen, (cfg.vocab_size, cfg.emb_size), 1.0,
                                   device=device),
-        "lm_cell": cells.lstm_init(gen, cfg.emb_size, cfg.lm_hidden_size,
-                                   device=device),
+        "lm_cell": cell_init(gen, cfg.emb_size, cfg.lm_hidden_size,
+                             device=device),
         "input_proj": dense_params(gen, hid + attn_size, cfg.emb_size,
                                    device=device),
         "attn_w": glorot_uniform(gen, (attn_size, cfg.attention_vec_size),
@@ -85,8 +95,8 @@ def init(gen: torch.Generator, cfg: DecoderConfig, attn_size: int, *,
         params["simple_proj"] = dense_params(gen, cfg.lm_hidden_size, hid,
                                              device=device)
     params["dec_cells"] = [
-        cells.lstm_init(gen, cfg.emb_size if layer == 0 else hid, hid,
-                        device=device)
+        cell_init(gen, cfg.emb_size if layer == 0 else hid, hid,
+                  device=device)
         for layer in range(cfg.num_layers_dec)]
     return params
 
@@ -123,14 +133,26 @@ def attention(params: dict, ctx: AttnContext, query: torch.Tensor
 
 def zero_state(cfg: DecoderConfig, batch: int, ctx: AttnContext) -> DecState:
     dev = ctx.enc_states.device
+    zero = cells.lstm_zero_state if cfg.use_lstm else cells.gru_zero_state
     return DecState(
-        cell_states=tuple(cells.lstm_zero_state((batch,), cfg.hidden_size_dec,
-                                                device=dev)
+        cell_states=tuple(zero((batch,), cfg.hidden_size_dec, device=dev)
                           for _ in range(cfg.num_layers_dec)),
-        lm_state=cells.lstm_zero_state((batch,), cfg.lm_hidden_size,
-                                       device=dev),
+        lm_state=zero((batch,), cfg.lm_hidden_size, device=dev),
         context=ctx.enc_states.new_zeros(batch, ctx.enc_states.shape[-1]),
         alpha=ctx.enc_states.new_zeros(batch, ctx.enc_states.shape[1]))
+
+
+def _cell_step(cfg: DecoderConfig, cell_params: dict, x: torch.Tensor,
+               state):
+    if cfg.use_lstm:
+        return cells.lstm_step(cell_params, x, state)
+    return cells.gru_step(cell_params, x, state)
+
+
+def _query_of(cfg: DecoderConfig, cell_states: tuple) -> torch.Tensor:
+    """The attention query: the top cell's c (LSTM) or h (GRU)."""
+    top = cell_states[-1]
+    return top.c if cfg.use_lstm else top
 
 
 def step(params: dict, cfg: DecoderConfig, ctx: AttnContext, state: DecState,
@@ -140,8 +162,8 @@ def step(params: dict, cfg: DecoderConfig, ctx: AttnContext, state: DecState,
     embedding. Returns (new_state, logits [B, V]). Dropout masks (float,
     already scaled by 1/keep): lm_drop_mask on the LM cell's output,
     inter_drop_masks between stacked decoder cells."""
-    lm_output, new_lm_state = cells.lstm_step(params["lm_cell"], lm_input,
-                                              state.lm_state)
+    lm_output, new_lm_state = _cell_step(cfg, params["lm_cell"], lm_input,
+                                         state.lm_state)
     if lm_drop_mask is not None:
         lm_output = lm_output * lm_drop_mask
     if "simple_proj" in params:
@@ -150,12 +172,12 @@ def step(params: dict, cfg: DecoderConfig, ctx: AttnContext, state: DecState,
               torch.cat([lm_output, state.context], dim=-1))
     new_cell_states = []
     for layer, cell_params in enumerate(params["dec_cells"]):
-        h, new_s = cells.lstm_step(cell_params, h, state.cell_states[layer])
+        h, new_s = _cell_step(cfg, cell_params, h, state.cell_states[layer])
         if inter_drop_masks is not None and layer < len(
                 params["dec_cells"]) - 1:
             h = h * inter_drop_masks[layer]
         new_cell_states.append(new_s)
-    query = new_cell_states[-1].c
+    query = _query_of(cfg, new_cell_states)
     context, alpha = attention(params, ctx, query)
     proj = dense(params["attn_proj"], torch.cat([query, context], dim=-1))
     out_proj = params["output_proj_ind" if cfg.ind_softmax else "output_proj"]
@@ -199,8 +221,8 @@ def apply_train(params: dict, cfg: DecoderConfig, dec_inputs: torch.Tensor,
     dec_inputs: [T, B] time-major ids starting with <go>; enc_states
     [B, T_enc, H_enc]. noise: `train_noise`'s tuple, or None to draw it
     from `gen`. Returns logits [T-1, B, V] (logits[t] predicts
-    dec_inputs[t+1]). On the card the fused training kernels run; on the
-    CPU the plain scan over `step`.
+    dec_inputs[t+1]). On the card the fused training kernels run (#8/#9
+    for LSTM cells, #10 for GRU); on the CPU the plain scan over `step`.
     """
     check_supported(cfg)
     T, B = dec_inputs.shape
@@ -221,9 +243,9 @@ def apply_train(params: dict, cfg: DecoderConfig, dec_inputs: torch.Tensor,
     emb = params["embedding"]
     emb_inputs = emb[dec_inputs.long()]                       # [T, B, emb]
     if dev.type == "cuda":
-        return dec_train.apply_train_fused(params, cfg, emb_inputs,
-                                           enc_states, enc_lens, flags,
-                                           gumbel, lm_masks)
+        fused = dec_train if cfg.use_lstm else dec_train_gru
+        return fused.apply_train_fused(params, cfg, emb_inputs, enc_states,
+                                       enc_lens, flags, gumbel, lm_masks)
     ctx = make_attn_context(params, enc_states, enc_lens)
     state = zero_state(cfg, B, ctx)
     lm_input = emb_inputs[0]
@@ -255,7 +277,7 @@ def apply_infer_early(params: dict, cfg: DecoderConfig, go_ids: torch.Tensor,
     kernel C (dec_step.output_fused, log-probs, argmax-equal to the
     logits), as the reference's fused inference step; their plain versions
     run for CPU tensors."""
-    check_supported(cfg)
+    check_decodable(cfg)
     B = go_ids.shape[0]
     emb = params["embedding"]
     ctx = make_attn_context(params, enc_states, enc_lens)

@@ -1,9 +1,10 @@
-"""Pyramidal BiLSTM encoder (port of the RNN branch of
+"""Pyramidal BiLSTM or BiGRU encoder (port of the RNN branch of
 e2e_asr_tpu/models/encoder.py).
 
-A stack of bidirectional LSTM layers; between layers, `skip_step`
-consecutive frames are concatenated (halving the time resolution) until the
-total reduction reaches `max_scaling_down`. Lengths follow ceil division.
+A stack of bidirectional LSTM layers (GRU layers with use_lstm=False);
+between layers, `skip_step` consecutive frames are concatenated (halving
+the time resolution) until the total reduction reaches `max_scaling_down`.
+Lengths follow ceil division.
 In training each layer's output takes dropout with keep probability
 `out_prob`, one keep-mask [T_d, B, 2H] per layer.
 """
@@ -25,9 +26,6 @@ def _check_supported(cfg: EncoderConfig) -> None:
     if cfg.encoder_type != "rnn":
         raise NotImplementedError("the transformer encoder is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Transformer family')")
-    if not cfg.use_lstm:
-        raise NotImplementedError("GRU encoders are not ported yet "
-                                  "(ROADMAP.md Queue 1, 'GRU option')")
     if not cfg.bi_dir:
         raise NotImplementedError(
             "forward-only encoders are not ported yet (ROADMAP.md Queue 1, "
@@ -63,9 +61,10 @@ def init(gen: torch.Generator, cfg: EncoderConfig, max_depth: int,
          feat_dim: int, *, device=None) -> dict:
     _check_supported(cfg)
     dims = layer_input_dims(cfg, max_depth, feat_dim)
+    cell_init = cells.lstm_init if cfg.use_lstm else cells.gru_init
     return {f"layer_{i + 1}": {
-        d: cells.lstm_init(gen, dims[i], cfg.hidden_size, init=_enc_init,
-                           device=device) for d in ("fw", "bw")}
+        d: cell_init(gen, dims[i], cfg.hidden_size, init=_enc_init,
+                     device=device) for d in ("fw", "bw")}
         for i in range(max_depth)}
 
 
@@ -126,6 +125,7 @@ def apply(params: dict, cfg: EncoderConfig, x: torch.Tensor,
                                     cfg.out_prob, x.device)
             out_dropout = (cfg.out_prob, mask.to(x.device))
         out_tm = rnn.rnn_layer(params[f"layer_{depth}"], x_tm, seq_len,
+                               cell="lstm" if cfg.use_lstm else "gru",
                                compute_dtype=compute_dtype,
                                out_dropout=out_dropout)
         if depth in want_time_major:

@@ -10,7 +10,9 @@ The LSTM runs through kernel #3 (core/rnn.lstm_scan).
 
 Not ported: the transformer decoder's tied LM (ROADMAP.md Queue 1,
 'Transformer family') and the shallow-fusion helpers (Queue 1, 'Decode
-features').
+features'). A GRU char decoder has no LM task: the JAX package's LM runs
+its tied cell through the LSTM scan (rnn_lm.py:180), which a GRU cell's
+leaves do not fit, and the port raises ValueError there (`check_cell`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,17 @@ from e2e_asr_tpu_torch.core import losses, rnn
 from e2e_asr_tpu_torch.core.layers import dense, dropout, dropout_mask
 
 
+GRU_LM = ("the LM task needs an LSTM char decoder: the JAX package has no "
+          "GRU LM task either (its tied LM runs the decoder's LM cell "
+          "through the LSTM scan, models/rnn_lm.py:180)")
+
+
+def check_cell(use_lstm: bool) -> None:
+    """Raise ValueError for a GRU char decoder, which has no LM task."""
+    if not use_lstm:
+        raise ValueError(GRU_LM)
+
+
 def shared_lm_params(params: dict) -> dict:
     """The char-decoder tensors the LM shares (not copies)."""
     dec = params["decoder_char"]
@@ -28,6 +41,7 @@ def shared_lm_params(params: dict) -> dict:
         raise NotImplementedError("the transformer decoder's tied LM is not "
                                   "ported yet (ROADMAP.md Queue 1, "
                                   "'Transformer family')")
+    check_cell("gates" not in dec["lm_cell"])
     out = {"lstm": dec["lm_cell"], "output_proj": dec["output_proj"],
            "embedding": dec["embedding"]}
     if "simple_proj" in dec:

@@ -25,8 +25,13 @@ seeds its key; the coins and the data order use the reference's seeds.
 TrainConfig fields the port does not honour raise NotImplementedError,
 naming their ROADMAP.md item, when they differ from their default
 (`UNPORTED`); so do bf16 compute (set compute_dtype="float32") and the
-non-attention families. `platform` and `score_unit` are the command
-line's (cli/main.py), as in the JAX package, whose Trainer reads neither.
+non-attention families. Before its first step, `train` raises where the
+run would reach what the port lacks: NotImplementedError when the dev
+cadence would decode a GRU char decoder (`GreedyEvaluator`; ROADMAP.md
+Queue 1, 'GRU decode'), ValueError when the LM task would run on one (the
+JAX package has none, models/rnn_lm.py). `platform` and `score_unit` are
+the command line's (cli/main.py), as in the JAX package, whose Trainer
+reads neither.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.lm import LMDataset
 from e2e_asr_tpu_torch.data.speech import SpeechDataset, prefetch
 from e2e_asr_tpu_torch.eval.greedy import GreedyEvaluator
-from e2e_asr_tpu_torch.models import seq2seq
+from e2e_asr_tpu_torch.models import rnn_lm, seq2seq
 from e2e_asr_tpu_torch.train import step as step_lib
 
 # TrainConfig field -> ROADMAP.md Queue 1 item that will honour it.
@@ -203,6 +208,8 @@ class Trainer:
         evaluator = (GreedyEvaluator(cfg, rev_vocab, tc.best_model_dir,
                                      device=self.device)
                      if dev_set is not None and rev_vocab else None)
+        if lm_data is not None:
+            rnn_lm.check_cell(cfg.decoders["char"].use_lstm)
 
         asr_err_best = self._read_best()
         previous_errs = self._read_err_history()

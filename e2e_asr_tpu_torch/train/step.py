@@ -245,9 +245,6 @@ def make_train_step(model_cfg: Seq2SeqConfig, lm_cfg: LMConfig,
         (enc.remat, "remat", "Training extensions"),
         (any(m is not None for m in (pp_mesh, sp_mesh, ep_mesh)),
          "pp/sp/ep meshes", "Parallelism last"),
-        (not enc.use_lstm or not all(d.use_lstm
-                                     for d in model_cfg.decoders.values()),
-         "GRU cells", "GRU option"),
         (model_cfg.ctc_weight > 0, "the hybrid CTC/attention loss",
          "CTC family"),
     ]

@@ -8,6 +8,7 @@ scores 1e-4 (sums of up to 16 float32 log-probs); transcripts equal.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,8 +58,8 @@ def test_encode_matches_jax(setup):
     cfg, _, jparams, named, _ = setup
     params = checkpoint.params_from_named(named, cfg, "cpu")
     feats, lens = _batch(0, [29, 17, 8, 1], T=30)
-    want = jseq2seq.encode(jparams, cfg, jnp.asarray(feats),
-                           jnp.asarray(lens))
+    want = jax.jit(lambda p, f, n: jseq2seq.encode(p, cfg, f, n))(
+        jparams, jnp.asarray(feats), jnp.asarray(lens))
     got = seq2seq.encode(params, cfg, torch.tensor(feats), torch.tensor(lens))
     for depth in want[0]:
         np.testing.assert_allclose(got[0][depth].numpy(),

@@ -166,7 +166,8 @@ def test_optimizer_matches_optax(setup):
     (norm above 5.0) and the third runs after set_lr."""
     cfg, jparams, named, jupdate = setup
     lm_cfg = LMConfig(vocab_size=V)
-    jstate = jstep.create_state(jparams, cfg, lm_cfg)
+    jstate = jax.jit(lambda p: jstep.create_state(p, cfg, lm_cfg))(jparams)
+    apply_updates = jax.jit(optax.apply_updates)
     state = step.create_state(checkpoint.params_from_named(named, cfg, "cpu"),
                               cfg, lm_cfg, device="cpu")
     port_opt = step.make_optimizer(cfg.learning_rate, cfg.max_gradient_norm)
@@ -181,7 +182,7 @@ def test_optimizer_matches_optax(setup):
         jg = jax.tree_util.tree_map(jnp.asarray,
                                     jckpt.unflatten_named(jparams, g))
         updates, new_opt = jupdate(jg, jstate.opt_state, jstate.params)
-        jstate = jstate._replace(params=optax.apply_updates(jstate.params,
+        jstate = jstate._replace(params=apply_updates(jstate.params,
                                                             updates),
                                  opt_state=new_opt)
         grads = checkpoint.params_from_named(g, cfg, "cpu")
@@ -210,7 +211,7 @@ def test_asr_step_matches_jax(setup):
     key = jax.random.PRNGKey(7)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     lm_cfg = LMConfig(vocab_size=V)
-    jstate = jstep.create_state(jparams, cfg, lm_cfg)
+    jstate = jax.jit(lambda p: jstep.create_state(p, cfg, lm_cfg))(jparams)
     # JAX's asr_step (train/step.py:333), keeping the loss and grads, and
     # its noise, in one jit.
     ((jloss, jtasks), jgrads), drawn = quick_jit(lambda p: (
@@ -218,9 +219,9 @@ def test_asr_step_matches_jax(setup):
             lambda q: jseq2seq.apply_train(q, cfg, jbatch, rng=key),
             has_aux=True)(p),
         draw_jax_noise(cfg, key, jbatch)), jstate.params)(jstate.params)
-    assert float(optax.global_norm(jgrads)) < cfg.max_gradient_norm
+    assert float(jax.jit(optax.global_norm)(jgrads)) < cfg.max_gradient_norm
     updates, _ = jupdate(jgrads, jstate.opt_state, jstate.params)
-    jnew = optax.apply_updates(jstate.params, updates)
+    jnew = jax.jit(optax.apply_updates)(jstate.params, updates)
     noise = port_noise(cfg, drawn)
 
     state = step.create_state(checkpoint.params_from_named(named, cfg, "cpu"),

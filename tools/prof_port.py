@@ -29,8 +29,9 @@ chip_smoke.py's):
    device time and launches of each kernel in its trace, the port's own
    kernels by name and PyTorch's (the matmuls outside the kernels, the
    elementwise work, the optimizer) summed as "other"; the same for one
-   asr_step of the char + phone model (phone decoder on encoder layer 3)
-   and for one lm_step at B=128, T=120 (chip_smoke.lm_batch).
+   asr_step of the char + phone model (phone decoder on encoder layer 3),
+   for one lm_step at B=128, T=120 (chip_smoke.lm_batch), and for one
+   asr_step of the GRU family's char + phone model (`-gru`).
 
 Traces are written under build/e2e_asr_tpu_torch/prof/. Prints one line per
 measurement, the card's name and power limit first, and the JSON of all
@@ -267,9 +268,12 @@ def profile_one_utterance(params, cfg, dev) -> dict:
     return out
 
 
+# The port's kernels by name; a name that contains another comes first.
 OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
-               "lstm_dw_kernel", "lstm_dw_sum_kernel", "dec_train_fwd_kernel",
-               "dec_train_bwd_kernel", "lstm_seq_fwd_kernel")
+               "dw_partial_kernel", "dw_sum_kernel", "dec_train_fwd_kernel",
+               "dec_train_bwd_kernel", "lstm_seq_fwd_kernel",
+               "dec_train_gru_fwd_kernel", "dec_train_gru_bwd_kernel",
+               "gru_fwd_kernel", "gru_bwd_chain_kernel")
 
 
 def profile_step(label: str, run, frames: int) -> dict:
@@ -301,9 +305,10 @@ def profile_step(label: str, run, frames: int) -> dict:
     return row
 
 
-def profile_train(cfg, dev) -> dict:
+def profile_train(cfg, dev, name: str | None = None) -> dict:
     """One asr_step of `cfg` at the bench's train shape, and one lm_step at
-    the LM task's shape when `cfg` has a phone task (the recipe's model)."""
+    the LM task's shape when `cfg` has a phone task and an LSTM char
+    decoder (the recipe's model; a GRU char decoder has no LM task)."""
     V = cfg.decoders["char"].vocab_size
     lm_cfg = LMConfig(vocab_size=V)
     params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -317,11 +322,12 @@ def profile_train(cfg, dev) -> dict:
     def one_asr():
         holder["state"], _ = asr_step(holder["state"], batch, gen)
 
-    name = "train_step" if cfg.tasks == ["char"] else "multitask_step"
+    name = name or ("train_step" if cfg.tasks == ["char"]
+                    else "multitask_step")
     out = {name: profile_step(
         f"{name} B={chip_smoke.TRAIN_B} T={chip_smoke.TRAIN_T} "
         f"L={chip_smoke.TRAIN_L}", one_asr, int(batch["logmel_len"].sum()))}
-    if "phone" in cfg.tasks:
+    if "phone" in cfg.tasks and cfg.decoders["char"].use_lstm:
         ids, lens, valid = (torch.as_tensor(a, device=dev) for a in
                             chip_smoke.lm_batch(np.random.default_rng(10),
                                                 chip_smoke.LM_B, V))
@@ -361,6 +367,8 @@ def main() -> int:
     result.update(profile_train(cfg, dev))
     result.update(profile_train(chip_smoke.flagship_cfg(
         40, chip_smoke.PHONE_VOCAB), dev))
+    result.update(profile_train(chip_smoke.flagship_cfg(
+        40, chip_smoke.PHONE_VOCAB, "gru"), dev, "gru_step"))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
