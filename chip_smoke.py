@@ -36,6 +36,14 @@ Phases; any failure exits nonzero and prints no result line:
      cuDNN's nn.GRU (another function, a cost comparison only); #10's
      forward and backward at the step's shapes (B=128, 47 steps; the char
      decoder, V=40, on 48 encoder frames, the phone decoder, V=46, on 96);
+   - the GRU decode's kernels: #11's GRU branch at N=32 (B=8, k=4) on the
+     `-gru` flagship's decoder, and with two layers and SimpleProjection;
+     #13 (the attention folded into C) at B=8, k=4, T=64 with an LSTM (c)
+     and a GRU (h) query and at the greedy shape k=1, B=64, each beside
+     the plain attention + C it replaces; #15's GRU branch on the `-gru`
+     flagship's encoder output as #15's cases above (B=1 k=4, B=2 k=4
+     unequal, B=1 k=16, B=2 k=1, <eos>-rigged), beside the per-step
+     route;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -70,24 +78,37 @@ Phases; any failure exits nonzero and prints no result line:
    training, 8 dev and 8 test utterances): `cli.main` trains 2 steps;
    `-dev -beam_size 4 -buck_batch_sizes 1` (one #15 launch per utterance,
    no per-step kernel); `-dev` greedy; `-test -beam_size 4` at a batch of
-   64 (the per-step route); `tools.beam_grid.grid_search` over beam sizes
-   4 and 16 at a batch of 1; BatchingTranscriber(max_batch=1) serving 8
-   requests one at a time (p50/p90 latency). Each run is held to its
-   route's launches and its output files;
+   64 (the per-step route); the same three with `-gru` (its own run
+   directory; #6, #7, #10, #11's GRU branch); `tools.beam_grid.grid_search`
+   over beam sizes 4 and 16 at a batch of 1; BatchingTranscriber
+   (max_batch=1) serving 8 requests one at a time (p50/p90 latency). Each
+   run is held to its route's launches and its output files;
 8. the GRU family (`-gru`): one char + phone asr_step at B=16 on the card
    and on the CPU must agree (loss, gradients, params after), then three
    steps at B=128, T=384, L=48, every loss finite, kernels #6, #7 and #10
    launched; their step time and frames/s, and one step's device-busy
-   share and per-kernel split (tools/prof_port.py);
+   share and per-kernel split (tools/prof_port.py); then the `-gru`
+   Trainer on phase 6's corpus without the LM task (train, greedy dev WER
+   through #11's GRU branch, save, exact resume), BeamEvaluator over its
+   64 dev utterances at a batch of 1 (one #15 GRU launch each) and of 64
+   (the per-step route: #11 GRU, #12, #14), and phase 4's serving burst
+   and card-vs-CPU decode with the `-gru` model;
 9. a GRU encoder under the LSTM decoders: the Trainer on phase 6's corpus
    (train, greedy dev WER, save, resume), BeamEvaluator over its 64 dev
    utterances at a batch of 1 (one #15 launch each), and phase 4's
-   serving burst and card-vs-CPU decode; each run launches #6.
+   serving burst and card-vs-CPU decode; each run launches #6;
+10. kernel #13 on the route: with E2E_ASR_FUSED_ATTN set and then
+   restored, a greedy and a per-step beam decode (beam 4) of 64 utterances
+   by the flagship and by the `-gru` flagship launch #13 and not C, and
+   equal the same decodes without it up to near-ties (< 1e-3); both
+   routes' times side by side.
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
-entry-point run, the GRU runs) counts its kernels' launches from zero; a
-row's `launches` in the kernels line is their sum over those runs. The line
-before the last is a JSON object with the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
-float32 throughout, TF32 off.
+entry-point run, the GRU runs, the #13 runs) counts its kernels' launches
+from zero; a row's `launches` in the kernels line is their sum over those
+runs. The line before the last is a JSON object with the per-kernel
+numbers; the last line is {"ok": true, "device": {...}}. float32
+throughout, TF32 off. No phase runs at a cut depth: the run took 87 s on
+the card before the GRU decode and #13 joined it.
 """
 from __future__ import annotations
 
@@ -115,9 +136,10 @@ from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
 from e2e_asr_tpu_torch.data.speech import SpeechDataset
 from e2e_asr_tpu_torch.eval import beam, beam_eval
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
-from e2e_asr_tpu_torch.kernels import (beam_mega, beam_select, build,
-                                       dec_step, dec_train, dec_train_gru,
-                                       gru_seq, lstm_bidir, lstm_seq)
+from e2e_asr_tpu_torch.kernels import (attn_output, beam_mega, beam_select,
+                                       build, dec_step, dec_train,
+                                       dec_train_gru, gru_seq, lstm_bidir,
+                                       lstm_seq)
 from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
 from e2e_asr_tpu_torch.tools import beam_grid
 from e2e_asr_tpu_torch.train import step
@@ -134,7 +156,8 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "lstm_bwd_lm": 1e-4, "gru_bidir": 1e-4, "gru_seq_masked": 1e-4,
        "gru_bidir_train": 1e-4, "gru_bidir_bwd": 1e-4, "gru_bwd": 1e-4,
        "dec_train_gru_fwd": 1e-4, "dec_train_gru_bwd": 1e-4,
-       "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4}
+       "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4,
+       "cells_fused_gru": 1e-4, "attn_output_fused": 1e-4}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
             "dec_train_gru_bwd_phone"}
@@ -520,6 +543,14 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
             inputs + nbytes(dlog, *got) + saves))
 
 
+def decoder_matrices(dec) -> list:
+    """The 2-D weights of a decoder step (LSTM or GRU cells): every kernel
+    but attn_w (applied to the encoder states once, before the steps) and
+    the embedding (a gather)."""
+    return [w for name, w in checkpoint.flatten_named(dec).items()
+            if w.dim() == 2 and not name.startswith(("attn_w", "embedding"))]
+
+
 def mega_work(dec, B: int, k: int, Henc: int, steps: int, inputs,
               outputs) -> tuple[float, int]:
     """(operations, bytes) of one whole search of kernel #15 that runs
@@ -529,25 +560,26 @@ def mega_work(dec, B: int, k: int, Henc: int, steps: int, inputs,
     multiply, sum over A; the context over Henc) and the softmaxes; bytes:
     each input read once, each output written once."""
     N, A = B * k, dec["attn_query"]["kernel"].shape[-1]
-    names = ["lm_cell", "simple_proj", "input_proj", "attn_query",
-             "attn_proj", "output_proj"]
-    mats = [dec[n]["kernel"] for n in names if n in dec]
-    mats += [c["kernel"] for c in dec["dec_cells"]]
+    mats = decoder_matrices(dec)
     V = dec["output_proj"]["kernel"].shape[-1]
     per_step = (2 * N * sum(w.numel() for w in mats)
                 + N * MEGA_T * (4 * A + 2 * Henc + 4) + 4 * N * V)
     return steps * per_step, nbytes(*inputs, *outputs)
 
 
-def check_mega(params, cfg, dev, record: Recorder) -> None:
-    """Phase 3, kernel #15 at the flagship widths on the flagship
-    encoder's output for 512-frame utterances (64 frames), 120 steps:
-    B=1 k=4, B=2 k=4 with unequal lengths, B=1 k=16, B=2 k=1 and an
-    <eos>-rigged B=2 k=4 (the output kernel zero, the <eos> bias 50: every
-    hypothesis finishes at its first step). Each case is one launch; its
-    outputs equal the plain version's, or part at a near-tie. Times at
-    B=1 k=4 beside the plain version's and the per-step route's."""
+def check_mega(params, cfg, dev, record: Recorder,
+               name: str = "beam_mega") -> None:
+    """Phase 3, kernel #15 (row `name`: "beam_mega" for the flagship's
+    LSTM decoder, "beam_mega_gru" for the `-gru` flagship's GRU decoder)
+    at the flagship widths on the model's encoder output for 512-frame
+    utterances (64 frames), 120 steps: B=1 k=4, B=2 k=4 with unequal
+    lengths, B=1 k=16, B=2 k=1 and an <eos>-rigged B=2 k=4 (the output
+    kernel zero, the <eos> bias 50: every hypothesis finishes at its first
+    step). Each case is one launch; its outputs equal the plain version's,
+    or part at a near-tie. Times at B=1 k=4 beside the plain version's and
+    the per-step route's."""
     dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    counter = COUNTERS[name][1]
     rng = np.random.default_rng(11)
     feats = torch.tensor(rng.normal(size=(2, 8 * MEGA_T, cfg.feat_length))
                          .astype(np.float32), device=dev)
@@ -561,56 +593,54 @@ def check_mega(params, cfg, dev, record: Recorder) -> None:
         "bias": torch.zeros_like(dec["output_proj"]["bias"])})
     rigged["output_proj"]["bias"][EOS_ID] = 50.0
     worst, parted, steps_run = 0.0, 0, {}
-    for name, B, k, p in (("b1_k4", 1, 4, dec), ("b2_k4", 2, 4, dec),
+    for case, B, k, p in (("b1_k4", 1, 4, dec), ("b2_k4", 2, 4, dec),
                           ("b1_k16", 1, 16, dec), ("b2_k1", 2, 1, dec),
                           ("b2_k4_eos_rigged", 2, 4, rigged)):
+        what = f"{name} {case}"
         bc = BeamConfig(beam_size=k, max_steps=MEGA_S)
         ctx = attn_decoder.make_attn_context(p, enc[:B], enc_lens[:B])
-        args = (p, dcfg, bc, ctx.enc_states.contiguous(),
-                ctx.hidden_features, ctx.mask)
-        before = beam_mega.LAUNCHES
+        args = (p, dcfg, bc, ctx.enc_states, ctx.hidden_features, ctx.mask)
+        before = getattr(beam_mega, counter)
         got = beam_mega.beam_decode_mega(*args, trace=True)
         torch.cuda.synchronize()
-        if beam_mega.LAUNCHES != before + 1:
-            fail(f"beam_mega {name}: not one launch")
+        if getattr(beam_mega, counter) != before + 1:
+            fail(f"{what}: not one launch")
         want = beam_mega.beam_decode_mega_reference(*args, trace=True)
         try:
             parts = beam_mega.parting(got, want, NEAR_TIE)
         except ValueError as e:
-            fail(f"beam_mega {name} disagrees with its plain version: {e}")
+            fail(f"{what} disagrees with its plain version: {e}")
         tokens, out_lens, scores, trace = [
             x.cpu() if torch.is_tensor(x) else x for x in got]
         for b, part in enumerate(parts):
             if part is not None:
                 parted += 1
-                print(f"beam_mega {name} utterance {b}: parts from the plain "
-                      f"version at step {part[0]} rank {part[1]}, selection "
-                      f"gap {part[2]:.3e} (near-tie limit {NEAR_TIE})")
+                print(f"{what} utterance {b}: parts from the plain version "
+                      f"at step {part[0]} rank {part[1]}, selection gap "
+                      f"{part[2]:.3e} (near-tie limit {NEAR_TIE})")
                 continue
             err = abs(float(scores[b]) - float(want[2][b]))
             if err > MEGA_SCORE_TOL * max(1.0, abs(float(want[2][b]))):
-                fail(f"beam_mega {name} utterance {b}: score error {err}")
+                fail(f"{what} utterance {b}: score error {err}")
             worst = max(worst, err)
         if (tokens.shape != (B, MEGA_S) or not torch.isfinite(scores).all()
                 or not ((tokens >= 0) & (tokens < dcfg.vocab_size)).all()
                 or not ((out_lens >= 1) & (out_lens <= MEGA_S)).all()):
-            fail(f"beam_mega {name}: bad outputs {out_lens.tolist()} "
+            fail(f"{what}: bad outputs {out_lens.tolist()} "
                  f"{scores.tolist()}")
         if p is rigged and out_lens.tolist() != [1] * B:
-            fail(f"beam_mega {name}: the rigged decoder did not finish at "
-                 f"its first step: {out_lens.tolist()}")
-        steps_run[name] = len(trace["vals"])
-        print(f"beam_mega {name}: {steps_run[name]} steps in one launch, "
-              f"lengths {out_lens.tolist()}, scores {scores.tolist()}",
-              flush=True)
+            fail(f"{what}: the rigged decoder did not finish at its first "
+                 f"step: {out_lens.tolist()}")
+        steps_run[case] = len(trace["vals"])
+        print(f"{what}: {steps_run[case]} steps in one launch, lengths "
+              f"{out_lens.tolist()}, scores {scores.tolist()}", flush=True)
     bc = BeamConfig(beam_size=4, max_steps=MEGA_S)
     ctx = attn_decoder.make_attn_context(dec, enc[:1], enc_lens[:1])
-    args = (dec, dcfg, bc, ctx.enc_states.contiguous(), ctx.hidden_features,
-            ctx.mask)
+    args = (dec, dcfg, bc, ctx.enc_states, ctx.hidden_features, ctx.mask)
     out = beam_mega.beam_decode_mega(*args)
-    weights = [w for name, w in checkpoint.flatten_named(dec).items()
-               if not name.startswith("attn_w")]
-    record.add("beam_mega", "e2e_asr_tpu_torch/csrc/beam_mega.cu",
+    weights = [w for key, w in checkpoint.flatten_named(dec).items()
+               if not key.startswith("attn_w")]
+    record.add(name, "e2e_asr_tpu_torch/csrc/beam_mega.cu",
                "e2e_asr_tpu/ops/beam_megakernel.py:368", worst,
                f"score_tolerance={MEGA_SCORE_TOL:.0e} (relative) "
                f"near_tie_partings={parted} (B=1 k=4 T={MEGA_T} "
@@ -623,7 +653,7 @@ def check_mega(params, cfg, dev, record: Recorder) -> None:
                None,
                steps_route_ms=time_ms(lambda: beam.beam_decode_steps(
                    dec, dcfg, bc, enc[:1], enc_lens[:1]), 2, warmup=1))
-    print("beam_mega: library none (no single PyTorch call computes a beam "
+    print(f"{name}: library none (no single PyTorch call computes a beam "
           "search); steps_route_ms is the per-step route it replaces on the "
           "same input", flush=True)
 
@@ -906,6 +936,131 @@ def check_dec_train_gru(params, cfg, dev, record: Recorder) -> None:
                 inputs + nbytes(dlog, *got) + saves))
 
 
+def check_cells_gru(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, kernel #11's GRU branch at the serving shape (N = 8 rows x
+    4 beams = 32) on the `-gru` flagship's char decoder (L=1), and on a
+    decoder of the same widths with two GRU layers and SimpleProjection
+    (lm_hidden 384; held to its plain version and timed as
+    `l2_simple_proj_ms`). Library: none."""
+    rng = np.random.default_rng(15)
+    rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32) * scale, device=dev)
+    dcfg = cfg.decoders["char"]
+    deep_cfg = dataclasses.replace(dcfg, num_layers_dec=2, lm_hidden_size=384)
+    N, Henc = 32, 2 * cfg.encoder.hidden_size
+    cases = []
+    for dec, c in ((params["decoder_char"], dcfg),
+                   (attn_decoder.init(torch.Generator().manual_seed(15),
+                                      deep_cfg, Henc, device=dev),
+                    deep_cfg)):
+        tokens = torch.tensor(rng.integers(0, c.vocab_size, size=N),
+                              device=dev)
+        args = (dec, dec["embedding"][tokens], rand(N, Henc, scale=0.3),
+                rand(N, c.lm_hidden_size, scale=0.5),
+                tuple(rand(N, c.hidden_size_dec, scale=0.5)
+                      for _ in range(c.num_layers_dec)))
+        cases.append((dec, args))
+
+    def kernel(args):
+        lm, dec_states, y = dec_step.cells_fused(*args, use_lstm=False)
+        return [lm, *dec_states, y]
+
+    def plain(args):
+        lm, dec_states, y = dec_step.cells_fused_reference(*args,
+                                                           use_lstm=False)
+        return [lm, *dec_states, y]
+
+    (dec, args), (deep, deep_args) = cases
+    abs_err, _, _ = Recorder.hold("cells_fused_gru", kernel(deep_args),
+                                  plain(deep_args))
+    deep_ms = time_ms(lambda: kernel(deep_args), 200)
+    print(f"kernel cells_fused_gru with 2 layers and SimpleProjection: "
+          f"max_abs_err={abs_err:.3e} kernel_ms={deep_ms:.4f}", flush=True)
+    weights = [w for key, w in checkpoint.flatten_named(dec).items()
+               if key.startswith(("lm_cell", "input_proj", "attn_query",
+                                  "dec_cells"))]
+    got = kernel(args)
+    record("cells_fused_gru", "e2e_asr_tpu_torch/csrc/dec_step.cu",
+           "e2e_asr_tpu/ops/dec_step_pallas.py:208", got, plain(args),
+           lambda: kernel(args), lambda: plain(args), 200, 50,
+           (2 * N * sum(w.numel() for w in weights if w.dim() == 2),
+            nbytes(*weights, *args[1:4], *args[4], *got)),
+           l2_simple_proj_ms=deep_ms)
+
+
+def attn_output_case(dec, dcfg, rng, dev, B: int, k: int, Henc: int):
+    """Kernel #13's inputs for B utterances x k beams over MEGA_T encoder
+    frames (lengths MEGA_T/2..MEGA_T, the first MEGA_T): the query
+    projection y and the query, hf, enc and the mask."""
+    rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32) * scale, device=dev)
+    lens = torch.tensor(rng.integers(MEGA_T // 2, MEGA_T + 1, size=B),
+                        device=dev)
+    lens[0] = MEGA_T
+    ctx = attn_decoder.make_attn_context(dec, rand(B, MEGA_T, Henc,
+                                                   scale=0.5), lens)
+    N = B * k
+    return (dec, dcfg, rand(N, dcfg.attention_vec_size),
+            rand(N, dcfg.hidden_size_dec, scale=0.5), ctx.hidden_features,
+            ctx.enc_states, ctx.mask)
+
+
+def check_attn_output(params, cfg, gru_params, gru_cfg, dev,
+                      record: Recorder) -> None:
+    """Phase 3, kernel #13 at the beam step's shape (B=8, k=4, T=64 encoder
+    frames of width 512) with the flagship's LSTM decoder (its query the
+    top c), the same with the `-gru` flagship's GRU decoder (the top h;
+    `gru_query_ms`) and at the greedy step's shape (k=1, B=64;
+    `greedy_b64_ms`), each held to its plain version; beside each, the
+    route it replaces on the same inputs: the plain attention
+    (attn_output.attend) and kernel C (`unfused_ms`,
+    `gru_unfused_ms`, `greedy_b64_unfused_ms`). Library: none."""
+    rng = np.random.default_rng(16)
+    Henc = 2 * cfg.encoder.hidden_size
+    runs = {}
+    for label, p, c, B, k in (
+            ("lstm", params, cfg, 8, 4), ("gru", gru_params, gru_cfg, 8, 4),
+            ("greedy_b64", params, cfg, 64, 1)):
+        case = attn_output_case(p["decoder_char"], c.decoders["char"], rng,
+                                dev, B, k, Henc)
+
+        def unfused(a=case, k=k):
+            dec, dcfg, y, query, hf, enc, mask = a
+            context, _ = attn_output.attend(dec, y, hf, enc, mask, k=k)
+            return dec_step.output_fused(dec, dcfg, query, context)
+
+        runs[label] = (
+            case, k, lambda a=case, k=k: attn_output.attn_output_fused(
+                *a, k=k),
+            lambda a=case, k=k: attn_output.attn_output_fused_reference(
+                *a, k=k), time_ms(unfused, 200))
+    for label in ("gru", "greedy_b64"):
+        case, k, kernel, plain, unfused_ms = runs[label]
+        abs_err, _, _ = Recorder.hold("attn_output_fused", kernel(), plain())
+        print(f"kernel attn_output_fused {label}: max_abs_err={abs_err:.3e} "
+              f"kernel_ms={time_ms(kernel, 200):.4f} "
+              f"unfused_ms={unfused_ms:.4f}", flush=True)
+    case, k, kernel, plain, unfused_ms = runs["lstm"]
+    dec, dcfg, y, query, hf, enc, mask = case
+    N, A = y.shape
+    T, H, V = hf.shape[1], query.shape[1], dcfg.vocab_size
+    weights = [dec["attn_v"], *(dec[n][p] for n in ("attn_proj",
+                                                    "output_proj")
+                                for p in ("kernel", "bias"))]
+    got = kernel()
+    record("attn_output_fused", "e2e_asr_tpu_torch/csrc/attn_output.cu",
+           "e2e_asr_tpu/ops/dec_step_pallas.py:309", got, plain(), kernel,
+           plain, 200, 50,
+           (N * T * (4 * A + 2 * Henc + 4) + 2 * N * (H + Henc) * H
+            + 2 * N * H * V + 4 * N * V,
+            nbytes(y, query, hf, enc, mask, *weights, *got)),
+           unfused_ms=unfused_ms,
+           gru_query_ms=time_ms(runs["gru"][2], 200),
+           gru_unfused_ms=runs["gru"][4],
+           greedy_b64_ms=time_ms(runs["greedy_b64"][2], 200),
+           greedy_b64_unfused_ms=runs["greedy_b64"][4])
+
+
 def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
     """Phase 4a: 24 requests through the batching engine."""
     rng = np.random.default_rng(2)
@@ -936,6 +1091,67 @@ def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
     return feats, texts, stats
 
 
+def recorded_selections(decode):
+    """decode() with every beam_select call's results kept (on the host):
+    (decode()'s outputs on the host, the selections of each step)."""
+    select = beam_select.beam_select
+    steps = []
+
+    def recording(*args, **kw):
+        out = select(*args, **kw)
+        steps.append({k: v.cpu() for k, v in out.items()})
+        return out
+
+    beam_select.beam_select = recording
+    try:
+        out = [t.cpu() for t in decode()]
+    finally:
+        beam_select.beam_select = select
+    return out, steps
+
+
+def hold_beam_runs(what: str, run_a, run_b, V: int) -> None:
+    """Hold two per-step beam decodes of one batch to each other (runs of
+    recorded_selections): every row equal, or parting at a near-tie of the
+    selection scores in the step where it parts."""
+    (tok_a, len_a, sc_a), steps_a = run_a
+    (tok_b, len_b, sc_b), steps_b = run_b
+    B = tok_a.shape[0]
+    for name, t in (("tokens", tok_a), ("scores", sc_a)):
+        if not torch.isfinite(t.float()).all():
+            fail(f"{what}: non-finite {name}")
+    if not ((tok_a >= 0) & (tok_a < V)).all():
+        fail(f"{what}: bad token array {tuple(tok_a.shape)}")
+    for b in range(B):
+        part = None
+        for s, (g, c) in enumerate(zip(steps_a, steps_b)):
+            if not all(torch.equal(g[k][b], c[k][b]) for k in
+                       ("parent", "token", "order", "fin_dest")):
+                part = s
+                break
+            if (g["vals"][b] - c["vals"][b]).abs().max() > NEAR_TIE:
+                fail(f"{what} row {b} step {s}: selection scores differ by "
+                     f"more than {NEAR_TIE} before any divergence")
+        if part is None:
+            if not (torch.equal(tok_a[b], tok_b[b])
+                    and int(len_a[b]) == int(len_b[b])):
+                fail(f"{what} row {b}: same selections but different "
+                     "outputs")
+            continue
+        g, c = steps_a[part], steps_b[part]
+        r = next(r for r in range(g["parent"].shape[1])
+                 if (g["parent"][b, r], g["token"][b, r])
+                 != (c["parent"][b, r], c["token"][b, r]))
+        gap = float((g["vals"][b, r] - c["vals"][b, r]).abs())
+        print(f"{what} row {b}: the runs part at step {part} rank {r}, "
+              f"selection-score gap {gap:.3e} (near-tie limit {NEAR_TIE})")
+        if gap >= NEAR_TIE:
+            fail(f"{what} row {b} diverges at step {part} by {gap}")
+    same = int(sum(torch.equal(tok_a[b], tok_b[b]) for b in range(B)))
+    print(f"{what}: {same}/{B} rows identical; max score diff "
+          f"{float((sc_a - sc_b).abs().max()):.3e}", flush=True)
+
+
 def compare_cpu(params, cfg, feats) -> None:
     """Phase 4b: one batch on the card vs the plain path on the CPU."""
     reqs = feats[:8]
@@ -947,61 +1163,16 @@ def compare_cpu(params, cfg, feats) -> None:
         batch["logmel"][i, :x.shape[0]] = x
     decode = beam_eval.make_beam_decoder(cfg, BeamConfig(beam_size=4,
                                                          max_steps=120))
-    select = beam_select.beam_select
-
-    def recording(steps):
-        def wrapped(*args, **kw):
-            out = select(*args, **kw)
-            steps.append({k: v.cpu() for k, v in out.items()})
-            return out
-        return wrapped
-
     runs = {}
-    try:
-        for name, p in (("cuda", params), ("cpu", to_device(params, "cpu"))):
-            steps = []
-            beam_select.beam_select = recording(steps)
-            t0 = time.monotonic()
-            out = [t.cpu() for t in decode(p, batch)]
-            runs[name] = (out, steps)
-            print(f"decode on {name}: {len(steps)} steps, "
-                  f"{time.monotonic() - t0:.3f} s", flush=True)
-    finally:
-        beam_select.beam_select = select
-    (tok_g, len_g, sc_g), steps_g = runs["cuda"]
-    (tok_c, len_c, sc_c), steps_c = runs["cpu"]
-    for name, t in (("tokens", tok_g), ("scores", sc_g)):
-        if not torch.isfinite(t.float()).all():
-            fail(f"non-finite {name} from the card")
-    if tok_g.shape != (8, 120) or not ((tok_g >= 0) & (tok_g < 40)).all():
-        fail(f"bad token array {tuple(tok_g.shape)}")
-    for b in range(8):
-        part = None
-        for s, (g, c) in enumerate(zip(steps_g, steps_c)):
-            if not all(torch.equal(g[k][b], c[k][b]) for k in
-                       ("parent", "token", "order", "fin_dest")):
-                part = s
-                break
-            if (g["vals"][b] - c["vals"][b]).abs().max() > NEAR_TIE:
-                fail(f"row {b} step {s}: selection scores differ by more "
-                     f"than {NEAR_TIE} before any divergence")
-        if part is None:
-            if not (torch.equal(tok_g[b], tok_c[b])
-                    and int(len_g[b]) == int(len_c[b])):
-                fail(f"row {b}: same selections but different outputs")
-            continue
-        g, c = steps_g[part], steps_c[part]
-        r = next(r for r in range(g["parent"].shape[1])
-                 if (g["parent"][b, r], g["token"][b, r])
-                 != (c["parent"][b, r], c["token"][b, r]))
-        gap = float((g["vals"][b, r] - c["vals"][b, r]).abs())
-        print(f"row {b}: cuda and cpu part at step {part} rank {r}, "
-              f"selection-score gap {gap:.3e} (near-tie limit {NEAR_TIE})")
-        if gap >= NEAR_TIE:
-            fail(f"row {b} diverges at step {part} by {gap}")
-    same = int(sum(torch.equal(tok_g[b], tok_c[b]) for b in range(8)))
-    print(f"cuda vs cpu: {same}/8 rows identical; max score diff "
-          f"{float((sc_g - sc_c).abs().max()):.3e}", flush=True)
+    for name, p in (("cuda", params), ("cpu", to_device(params, "cpu"))):
+        t0 = time.monotonic()
+        runs[name] = recorded_selections(lambda p=p: decode(p, batch))
+        print(f"decode on {name}: {len(runs[name][1])} steps, "
+              f"{time.monotonic() - t0:.3f} s", flush=True)
+    if runs["cuda"][0][0].shape != (8, 120):
+        fail(f"bad token array {tuple(runs['cuda'][0][0].shape)}")
+    hold_beam_runs("cuda vs cpu", runs["cuda"], runs["cpu"],
+                   cfg.decoders["char"].vocab_size)
 
 
 # Each kernel row's launch counter (module, name). lstm_bwd and lstm_bwd_lm
@@ -1028,7 +1199,10 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "dec_train_gru_fwd": (dec_train_gru, "FWD_LAUNCHES"),
             "dec_train_gru_bwd": (dec_train_gru, "BWD_LAUNCHES"),
             "dec_train_gru_fwd_phone": (dec_train_gru, "FWD_LAUNCHES"),
-            "dec_train_gru_bwd_phone": (dec_train_gru, "BWD_LAUNCHES")}
+            "dec_train_gru_bwd_phone": (dec_train_gru, "BWD_LAUNCHES"),
+            "cells_fused_gru": (dec_step, "CELLS_GRU_LAUNCHES"),
+            "beam_mega_gru": (beam_mega, "GRU_LAUNCHES"),
+            "attn_output_fused": (attn_output, "LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1048,6 +1222,15 @@ GRU_TRAIN_PATH = ("gru_bidir_train", "gru_bidir_bwd", "dec_train_gru_fwd",
 MIX_SERVING_PATH = ("gru_bidir",) + SERVING_PATH[1:]
 MIX_RECIPE_PATH = (GRU_TRAIN_PATH[:2] + TRAIN_PATH[2:] + LM_PATH
                    + ("gru_bidir", "cells_fused", "output_fused"))
+GRU_SERVING_PATH = ("gru_bidir", "cells_fused_gru") + SERVING_PATH[2:]
+GRU_RECIPE_PATH = GRU_TRAIN_PATH + ("gru_bidir", "cells_fused_gru",
+                                    "output_fused")
+
+
+def decode_rows(gru_decoder: bool) -> tuple[str, str]:
+    """The rows of kernels #11 and #15 for a decoder's cells."""
+    return (("cells_fused_gru", "beam_mega_gru") if gru_decoder
+            else ("cells_fused", "beam_mega"))
 
 
 def zero_launches() -> None:
@@ -1289,10 +1472,11 @@ def train_lm_multitask(dev, card) -> dict:
 def recipe(dev, card, cells: str = "lstm") -> dict:
     """Phase 6: train a synthetic corpus at the flagship shape with the
     port's Trainer, evaluate, save, and resume in a second Trainer
-    (`cells` as flagship_cfg's). With cells="gru_encoder", then also
-    evaluate the trained model on the dev set at a batch of 1 through
-    BeamEvaluator (beam 4: one #15 launch per utterance). Returns the
-    launches of each run."""
+    (`cells` as flagship_cfg's; "gru" trains without the LM task, which a
+    GRU char decoder does not have). With GRU cells, then also evaluate
+    the trained model on the dev set through BeamEvaluator (beam 4) at a
+    batch of 1 (one #15 launch per utterance) and, with GRU decoders, at a
+    batch of 64 (the per-step route). Returns the launches of each run."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.monotonic()
         sizes = synth.make_vocab_dir(os.path.join(root, "vocab"))
@@ -1315,7 +1499,8 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             lm_data_dir=os.path.join(data, "lm"),
             vocab_dir=os.path.join(root, "vocab"),
             train_dir=os.path.join(root, "train"),
-            best_model_dir=os.path.join(root, "best"), lm_prob=0.5,
+            best_model_dir=os.path.join(root, "best"),
+            lm_prob=0.0 if cells == "gru" else 0.5,
             steps_per_checkpoint=3, compute_dtype="float32")
         cfg = ExperimentConfig(
             model=flagship_cfg(sizes["char"], sizes["phone"], cells),
@@ -1338,8 +1523,9 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
         state = trainer.train()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        runs = {name: read_launches(name, RECIPE_PATH if cells == "lstm"
-                                    else MIX_RECIPE_PATH)}
+        runs = {name: read_launches(name, {
+            "lstm": RECIPE_PATH, "gru_encoder": MIX_RECIPE_PATH,
+            "gru": GRU_RECIPE_PATH}[cells])}
         asr = [float(x) for x in losses["asr"]]
         lm = [float(x) for x in losses["lm"]]
         with open(os.path.join(train_cfg.train_dir, "asr_err.txt")) as f:
@@ -1350,7 +1536,8 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
               f"{[round(x, 4) for x in asr]}; LM losses "
               f"{[round(x, 4) for x in lm]}; dev WER {errs}; wall "
               f"{wall:.1f} s", flush=True)
-        if not (asr and lm and np.isfinite(asr + lm).all()):
+        if not (asr and (lm or cells == "gru")
+                and np.isfinite(asr + lm).all()):
             fail(f"{name} losses: ASR {asr}, LM {lm}")
         found = checkpoint.restore_latest(train_cfg.train_dir)
         if found is None or len(errs) != 2 or int(state.global_step) != 6:
@@ -1366,21 +1553,25 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
         print(f"{name}: checkpoint of step {int(named['global_step'])} "
               f"written and resumed by a second Trainer ({len(named)} "
               f"leaves equal)", flush=True)
-        if cells == "gru_encoder":
-            runs["beam eval gru_encoder"] = beam_eval_batch1(
-                cfg, state.params, root, dev, card)
+        for batch in ((1, 64) if cells == "gru" else
+                      (1,) if cells == "gru_encoder" else ()):
+            label = f"beam eval {cells} batch {batch}"
+            runs[label] = beam_eval_run(cfg, state.params, root, dev, card,
+                                        batch, label)
     return runs
 
 
-def beam_eval_batch1(cfg, params, root: str, dev, card: str) -> dict:
-    """BeamEvaluator over the dev set of a recipe run (64 utterances) at a
-    batch of 1, beam 4: kernel #15's route, one launch an utterance, and
-    no per-step kernel. Returns the launches."""
-    dev_set = SpeechDataset([os.path.join(root, "data", "dev.0001")], 1, 80,
-                            is_training=False, tasks=("char",))
+def beam_eval_run(cfg, params, root: str, dev, card: str, batch: int,
+                  label: str) -> dict:
+    """BeamEvaluator over the dev set of a recipe run (64 utterances of a
+    GRU encoder's model), beam 4, at a batch of 1 (kernel #15's route, one
+    launch an utterance, no per-step kernel) or of 64 (the per-step route:
+    #11, #12 and #14, no #15). Returns the launches."""
+    dev_set = SpeechDataset([os.path.join(root, "data", "dev.0001")], batch,
+                            80, is_training=False, tasks=("char",))
     _, rev_vocab = text.initialize_vocabulary(
         os.path.join(root, "vocab", "char.vocab"))
-    out_dir = os.path.join(root, "beam")
+    out_dir = os.path.join(root, f"beam_{batch}")
     evaluator = beam_eval.BeamEvaluator(
         cfg.model, BeamConfig(beam_size=4, max_steps=120), rev_vocab,
         out_dir, device=dev)
@@ -1389,18 +1580,19 @@ def beam_eval_batch1(cfg, params, root: str, dev, card: str) -> dict:
     wer = evaluator(params, dev_set.epoch())
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = read_launches("beam eval gru_encoder", ("gru_bidir",
-                                                       "beam_mega"))
-    if launches["beam_mega"] != 64 or any(
-            launches[k] for k in ("cells_fused", "output_fused",
-                                  "beam_select")):
-        fail(f"beam eval at batch 1: {launches['beam_mega']} #15 launches "
-             "for 64 utterances, or a per-step kernel launched")
+    cells_row, mega = decode_rows(not cfg.model.decoders["char"].use_lstm)
+    per_step = (cells_row, "output_fused", "beam_select")
+    route, off = (((mega,), per_step) if batch == 1 else (per_step, (mega,)))
+    launches = read_launches(label, ("gru_bidir",) + route)
+    if any(launches[k] for k in off) or (
+            batch == 1 and launches[mega] != 64):
+        fail(f"{label}: {launches[mega]} #15 launches for 64 utterances, "
+             f"or a kernel of {off} launched")
     with open(os.path.join(out_dir, "raw_4.txt")) as f:
         if len(f.read().splitlines()) != 64:
-            fail("beam eval at batch 1: not 64 hypotheses")
-    print(f"beam eval gru_encoder ({card}): 64 dev utterances at batch 1, "
-          f"beam 4, WER {wer:.4f}, wall {wall:.2f} s", flush=True)
+            fail(f"{label}: not 64 hypotheses")
+    print(f"{label} ({card}): 64 dev utterances, beam 4, WER {wer:.4f}, "
+          f"wall {wall:.2f} s", flush=True)
     return launches
 
 
@@ -1424,17 +1616,20 @@ def train_gru(dev, card) -> dict:
     return launches
 
 
-def serve_gru_encoder(dev, card, rev_vocab) -> dict:
-    """Phase 9: the flagship with a GRU encoder under the LSTM decoders
-    (random weights from seed 0) serves 24 requests, and one batch decoded
-    on the card equals the CPU's (as phase 4). Returns the launches."""
-    cfg = flagship_cfg(cells="gru_encoder")
+def serve_cells(dev, card, rev_vocab, cells: str) -> dict:
+    """Phases 8 and 9: the flagship with GRU cells (`cells` as
+    flagship_cfg's: "gru", the `-gru` model; "gru_encoder", a GRU encoder
+    under the LSTM decoders; random weights from seed 0) serves 24
+    requests, and one batch decoded on the card equals the CPU's up to
+    near-ties (as phase 4). Returns the launches."""
+    cfg = flagship_cfg(cells=cells)
     params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
     with torch.no_grad():
         zero_launches()
         feats, texts, stats = serve(params, cfg, dev, rev_vocab)
-        launches = read_launches("serving gru_encoder", MIX_SERVING_PATH)
-        print(f"serving gru_encoder ({card}): {json.dumps(stats)}")
+        launches = read_launches(f"serving {cells}", (
+            GRU_SERVING_PATH if cells == "gru" else MIX_SERVING_PATH))
+        print(f"serving {cells} ({card}): {json.dumps(stats)}")
         if len(texts) != 24 or not all(isinstance(t, str) for t in texts):
             fail("not every request got a transcript")
         compare_cpu(params, cfg, feats)
@@ -1519,6 +1714,26 @@ def entry_points(dev, card) -> dict:
             ("lstm_bidir",) + per_step, mega)
         lines(os.path.join(best, "raw_4.txt"), 8)
 
+        # The GRU family (-gru): its own run directory.
+        gru = base + ["-gru"]
+        gru_best = cli.parse_options(gru + ["-dev"]).train.best_model_dir
+        gru_step = ("cells_fused_gru", "output_fused")
+        lstm_only = ("lstm_bidir", "cells_fused", "beam_mega")
+        run("cli -gru train", lambda: cli.main(
+            gru + ["-buck_batch_sizes", "32"]),
+            GRU_TRAIN_PATH + ("gru_bidir",) + gru_step,
+            lstm_only + ("beam_mega_gru",))
+        run("cli -gru -dev greedy", lambda: cli.main(
+            gru + ["-dev", "-buck_batch_sizes", "32"]),
+            ("gru_bidir",) + gru_step,
+            lstm_only + ("beam_select", "beam_mega_gru"))
+        lines(os.path.join(gru_best, "decoded_asr.txt"), 8)
+        run("cli -gru -test beam 4", lambda: cli.main(
+            gru + ["-test", "-beam_size", "4"]),
+            ("gru_bidir",) + gru_step + ("beam_select",),
+            lstm_only + ("beam_mega_gru",))
+        lines(os.path.join(gru_best, "raw_4.txt"), 8)
+
         named, _ = checkpoint.restore_latest(train_dir)
         params = checkpoint.params_from_named(
             {k[len("params/"):]: v for k, v in named.items()
@@ -1560,6 +1775,129 @@ def entry_points(dev, card) -> dict:
         print(f"serving max_batch 1 ({card}): 8 requests one at a time, "
               f"latency p50 {np.percentile(latency, 50):.1f} ms, p90 "
               f"{np.percentile(latency, 90):.1f} ms", flush=True)
+    return runs
+
+
+def recorded_logp(decode):
+    """decode() with the log-probs of each decoder step kept (on the host),
+    from kernel C or from #13: (decode()'s output on the host, the
+    log-probs [B, V] of each step)."""
+    output, fused = dec_step.output_fused, attn_output.attn_output_fused
+    steps = []
+
+    def from_output(*args, **kw):
+        logp = output(*args, **kw)
+        steps.append(logp.cpu())
+        return logp
+
+    def from_fused(*args, **kw):
+        out = fused(*args, **kw)
+        steps.append(out[0].cpu())
+        return out
+
+    dec_step.output_fused = from_output
+    attn_output.attn_output_fused = from_fused
+    try:
+        return decode().cpu(), steps
+    finally:
+        dec_step.output_fused = output
+        attn_output.attn_output_fused = fused
+
+
+def hold_greedy_runs(what: str, run_a, run_b) -> None:
+    """Hold two greedy decodes of one batch to each other (runs of
+    recorded_logp): each row's ids equal, or parting at a step whose
+    log-probs of the two ids differ by less than NEAR_TIE in run a, with
+    the rows' log-probs within NEAR_TIE of each other up to there."""
+    (ids_a, logp_a), (ids_b, logp_b) = run_a, run_b
+    B = ids_a.shape[0]
+    parted = {}
+    for b in range(B):
+        differ = torch.nonzero(ids_a[b] != ids_b[b]).flatten()
+        if len(differ):
+            parted[b] = int(differ[0])
+    for t, (la, lb) in enumerate(zip(logp_a, logp_b)):
+        live = [b for b in range(B) if parted.get(b, t + 1) > t]
+        err = float((la[live] - lb[live]).abs().max()) if live else 0.0
+        if not err < NEAR_TIE:
+            fail(f"{what} step {t}: log-probs differ by {err}")
+    for b, t in parted.items():
+        gap = float(logp_a[t][b, ids_a[b, t]] - logp_a[t][b, ids_b[b, t]])
+        print(f"{what} row {b}: the runs part at step {t}, log-prob gap "
+              f"{gap:.3e} (near-tie limit {NEAR_TIE})")
+        if gap >= NEAR_TIE:
+            fail(f"{what} row {b} diverges at step {t} by {gap}")
+    print(f"{what}: {B - len(parted)}/{B} rows identical over "
+          f"{len(logp_a)} steps", flush=True)
+
+
+def fused_attention_route(dev, card) -> dict:
+    """Kernel #13 on the route: with E2E_ASR_FUSED_ATTN set (and then
+    restored), a greedy decode and a per-step beam decode (beam 4) of 64
+    utterances (120-512 frames) by the flagship (LSTM) and by the `-gru`
+    flagship, random weights from seed 0, each beside the same decode
+    without it. The fused runs launch #13 and not C, the unfused ones C
+    and not #13; their outputs are equal up to near-ties; their host times
+    side by side. Returns the launches of each run."""
+    rng = np.random.default_rng(17)
+    lens = rng.integers(120, 513, size=64)
+    lens[0] = 512
+    feats = rng.normal(size=(64, 512, 80)).astype(np.float32)
+    feats[np.arange(512)[None, :] >= lens[:, None]] = 0.0
+    batch = {"logmel": feats, "logmel_len": lens}
+    saved = os.environ.pop("E2E_ASR_FUSED_ATTN", None)
+    runs = {}
+    try:
+        for cells in ("lstm", "gru"):
+            cfg = flagship_cfg(cells=cells)
+            params = seq2seq.init(torch.Generator().manual_seed(0), cfg,
+                                  device=dev)
+            f = torch.tensor(feats, device=dev)
+            n = torch.tensor(lens, device=dev)
+            decode = beam_eval.make_beam_decoder(
+                cfg, BeamConfig(beam_size=4, max_steps=120))
+            kernels = ("lstm_bidir" if cells == "lstm" else "gru_bidir",
+                       decode_rows(cells == "gru")[0])
+            out, walls = {}, {}
+            for fused in (False, True):
+                if fused:
+                    os.environ["E2E_ASR_FUSED_ATTN"] = "1"
+                route = "#13" if fused else "unfused"
+                step_row, off = (("attn_output_fused", "output_fused")
+                                 if fused else
+                                 ("output_fused", "attn_output_fused"))
+                for kind, fn, extra in (
+                        ("greedy", lambda: recorded_logp(
+                            lambda: seq2seq.apply_greedy(params, cfg, f, n)),
+                         ()),
+                        ("beam 4", lambda: recorded_selections(
+                            lambda: decode(params, batch)),
+                         ("beam_select",))):
+                    label = f"{cells} {kind} batch 64 {route}"
+                    zero_launches()
+                    t0 = time.monotonic()
+                    with torch.no_grad():
+                        out[kind, fused] = fn()
+                    torch.cuda.synchronize()
+                    walls[kind, fused] = time.monotonic() - t0
+                    runs[label] = read_launches(label, kernels + (step_row,)
+                                                + extra)
+                    if runs[label][off]:
+                        fail(f"the {label} run launched {off}")
+            os.environ.pop("E2E_ASR_FUSED_ATTN", None)
+            hold_greedy_runs(f"{cells} greedy unfused vs #13",
+                             out["greedy", False], out["greedy", True])
+            hold_beam_runs(f"{cells} beam unfused vs #13",
+                           out["beam 4", False], out["beam 4", True],
+                           cfg.decoders["char"].vocab_size)
+            for kind in ("greedy", "beam 4"):
+                print(f"{cells} {kind} batch 64 ({card}): unfused wall "
+                      f"{walls[kind, False]:.3f} s, #13 wall "
+                      f"{walls[kind, True]:.3f} s", flush=True)
+    finally:
+        os.environ.pop("E2E_ASR_FUSED_ATTN", None)
+        if saved is not None:
+            os.environ["E2E_ASR_FUSED_ATTN"] = saved
     return runs
 
 
@@ -1607,6 +1945,10 @@ def main() -> int:
                               device=dev)
     check_gru_kernels(gru_params, gru_cfg, dev, record)
     check_dec_train_gru(gru_params, gru_cfg, dev, record)
+    with torch.no_grad():
+        check_cells_gru(gru_params, gru_cfg, dev, record)
+        check_attn_output(params, cfg, gru_params, gru_cfg, dev, record)
+    check_mega(gru_params, gru_cfg, dev, record, "beam_mega_gru")
     del gru_params
 
     # 4. serving
@@ -1633,13 +1975,21 @@ def main() -> int:
     # 7. entry points
     paths.update(entry_points(dev, card))
 
-    # 8. the GRU family's train step (-gru)
+    # 8. the GRU family (-gru): its train step; the Trainer (train, greedy
+    # dev WER, save, resume) and beam evaluation at batches of 1 and 64;
+    # serving and card-vs-CPU decodes
     paths["gru"] = train_gru(dev, card)
+    paths.update(recipe(dev, card, "gru"))
+    paths["serving gru"] = serve_cells(dev, card, rev_vocab, "gru")
 
     # 9. a GRU encoder under the LSTM decoders: Trainer (train, greedy dev
     # WER, save, resume), beam evaluation at a batch of 1, serving
     paths.update(recipe(dev, card, "gru_encoder"))
-    paths["serving gru_encoder"] = serve_gru_encoder(dev, card, rev_vocab)
+    paths["serving gru_encoder"] = serve_cells(dev, card, rev_vocab,
+                                               "gru_encoder")
+
+    # 10. kernel #13 on the route (E2E_ASR_FUSED_ATTN), LSTM and GRU
+    paths.update(fused_attention_route(dev, card))
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(json.dumps({"kernels": record.rows}))

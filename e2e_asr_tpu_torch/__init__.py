@@ -16,7 +16,8 @@ kernels, clip + Adam), the phone multitask, greedy dev WER
 (`train/loop.Trainer`); the command line (`cli/main.py`: train, `-dev`,
 `-test`), beam evaluation (`eval/beam_eval.BeamEvaluator`) and the beam
 grid (`tools/beam_grid.py`), with the whole search of a batch of 1-2
-utterances in one launch (kernel #15); float32, LSTM cells. Entry points
+utterances in one launch (kernel #15); float32, for the LSTM and the GRU
+(`-gru`) families alike, TensorBoard summaries included. Entry points
 run on the CUDA card unless the caller passes device="cpu" (`-platform
 cpu` on the command line). What is not ported raises
 NotImplementedError naming its ROADMAP.md item. This package imports

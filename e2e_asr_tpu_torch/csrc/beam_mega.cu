@@ -3,8 +3,9 @@
 // Replaces e2e_asr_tpu/ops/beam_megakernel.py beam_decode_mega (body
 // _mega_kernel): up to S steps of select-expand-finalize, stopping once no
 // hypothesis of the batch is live, with the semantics of eval/beam.py:
-//   1. decoder-LM LSTM -> [SimpleProjection] -> InputProjection([lm_out,
-//      context]) -> L decoder LSTMs; the attention query is the top c;
+//   1. decoder-LM cell -> [SimpleProjection] -> InputProjection([lm_out,
+//      context]) -> L decoder cells; the attention query is the top c of
+//      LSTM cells, the top h of GRU cells (_mega_kernel's two branches);
 //   2. additive attention over the precomputed hidden features
 //      (s = v . tanh(hf + y), masked to NEG_INF, softmax, context);
 //   3. AttnProjection([query, context]) -> OutputProjection -> log_softmax;
@@ -14,10 +15,11 @@
 //      accepted <eos> goes to the k-slot finished buffer, the rest are
 //      compacted into live slots in rank order, scores stored as
 //      val + word_ins_penalty * (t + 1); parent states, context and
-//      sequences gathered, the next input the selected token's embedding;
+//      sequences gathered (a GRU carries h alone), the next input the
+//      selected token's embedding;
 //   5. after the loop, the best of finished u live (ties to the first,
 //      finished before live); live lengths are the step count.
-// LSTM cells at any depth (up to kMaxLayers), with or without
+// LSTM or GRU cells at any depth (up to kMaxLayers), with or without
 // SimpleProjection, float32.
 //
 // Bound on the H100: the serial chain of small dependent stages, not FLOPs
@@ -25,10 +27,12 @@
 // stay in the 50 MB L2 across steps, and every stage needs the one before.
 //
 // Design: one cooperative persistent launch; a grid barrier between the
-// dependent stages (10 + L a step, one more with SimpleProjection), each
-// stage spread over the grid:
+// dependent stages (9 + L a step with LSTM cells, 10 + 2L with GRU cells,
+// whose candidate product needs all of r*h; one more with
+// SimpleProjection), each stage spread over the grid:
 //   - the products over the N = B*k rows are the 8-row x 32-column tiles of
-//     tiles.cuh (the decoder step's kernels #11/#12 use the same);
+//     tiles.cuh, the cells its cell_stages (the decoder step's kernels
+//     #11/#12 use the same);
 //   - attention scores: a warp per (row, encoder frame); the softmax and
 //     the context: a warp per (row, 128 context columns), each recomputing
 //     its row's softmax from the scores;
@@ -61,25 +65,31 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct MegaArgs {
   // inputs
-  const float *enc, *hf, *mask, *emb, *attn_v, *lm_w, *lm_b, *sp_w, *sp_b,
-      *ip_w, *ip_b, *q_w, *q_b, *ap_w, *ap_b, *out_w, *out_b;
-  const float *dec_w[kMaxLayers], *dec_b[kMaxLayers];
+  const float *enc, *hf, *mask, *emb, *attn_v, *lm_w, *lm_b, *lm_wc, *lm_bc,
+      *sp_w, *sp_b, *ip_w, *ip_b, *q_w, *q_b, *ap_w, *ap_b, *out_w, *out_b;
+  // per layer the LSTM kernel | GRU gates, and the GRU candidate (null for
+  // LSTM cells)
+  const float *dec_w[kMaxLayers], *dec_b[kMaxLayers], *dec_wc[kMaxLayers],
+      *dec_bc[kMaxLayers];
   // outputs; the trace pointers may be null
   long long *tokens, *lens;
   float* best;
   float* tr_vals;
   int *tr_parent, *tr_token;
-  // beam state, read by a step and rewritten by its gather
+  // beam state, read by a step and rewritten by its gather (the c buffers
+  // null for GRU cells)
   float *lm_c, *lm_h, *dec_c[kMaxLayers], *dec_h[kMaxLayers], *ctx, *inputs,
       *scores;
   int *alive, *seqs[2];
   // the step's outputs
   float *lm_c_new, *lm_h_new, *sp_out, *x_out, *dec_c_new[kMaxLayers],
       *dec_h_new[kMaxLayers], *y, *att, *ctx_new, *proj, *logits;
+  // a GRU cell's r*h and u (tiles.cuh cell_stages)
+  float *rh, *ug;
   // the selection's results and the finished buffer
   int *slot_parent, *slot_token, *fin_seqs, *fin_lens, *fin_count, *live;
   float* fin_scores;
-  int B, k, T, Henc, E, Hl, H, A, V, L, S, eos, go, has_sp;
+  int B, k, T, Henc, E, Hl, H, A, V, L, S, eos, go, has_sp, gru;
   double penalty;
 };
 
@@ -106,6 +116,7 @@ __device__ void init_state(const MegaArgs& p) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nth = gridDim.x * blockDim.x;
   auto zero = [&](float* a, int n) {
+    if (a == nullptr) return;  // a GRU's c
     for (int i = tid; i < n; i += nth) a[i] = 0.f;
   };
   zero(p.lm_c, N * p.Hl);
@@ -305,6 +316,7 @@ __device__ void gather_state(const MegaArgs& p, int t) {
     return parent < 0 ? -1 : n / p.k * p.k + parent;
   };
   auto rows = [&](float* dst, const float* src, int w) {
+    if (dst == nullptr) return;  // a GRU's c
     for (int i = tid; i < N * w; i += nth) {
       const int s = src_row(i / w);
       dst[i] = s < 0 ? 0.f : __ldcg(src + static_cast<size_t>(s) * w + i % w);
@@ -377,9 +389,9 @@ __global__ void __launch_bounds__(kThreads) beam_mega_kernel(MegaArgs p) {
     bool any = false;
     for (int b = 0; b < p.B; ++b) any |= __ldcg(p.live + b) != 0;
     if (!any) break;  // the same flags in every block: all leave together
-    for (int i = blockIdx.x; i < num_tiles(p.Hl, N); i += gridDim.x)
-      lstm_tile(p.inputs, p.E, p.lm_h, p.lm_c, p.Hl, p.lm_w, p.lm_b,
-                p.lm_c_new, p.lm_h_new, N, i, smem);
+    const Cell lm{p.lm_c, p.lm_h, p.lm_w, p.lm_b, p.lm_wc, p.lm_bc,
+                  p.lm_c_new, p.lm_h_new};
+    cell_stages(lm, p.inputs, p.E, p.Hl, N, p.rh, p.ug, smem, grid);
     grid.sync();
     const float* lm_y = p.lm_h_new;
     if (p.has_sp) {
@@ -396,14 +408,14 @@ __global__ void __launch_bounds__(kThreads) beam_mega_kernel(MegaArgs p) {
     const float* x = p.x_out;
     int Kx = p.E;
     for (int l = 0; l < p.L; ++l) {
-      for (int i = blockIdx.x; i < num_tiles(p.H, N); i += gridDim.x)
-        lstm_tile(x, Kx, p.dec_h[l], p.dec_c[l], p.H, p.dec_w[l], p.dec_b[l],
-                  p.dec_c_new[l], p.dec_h_new[l], N, i, smem);
+      const Cell cell{p.dec_c[l],  p.dec_h[l],  p.dec_w[l],     p.dec_b[l],
+                      p.dec_wc[l], p.dec_bc[l], p.dec_c_new[l], p.dec_h_new[l]};
+      cell_stages(cell, x, Kx, p.H, N, p.rh, p.ug, smem, grid);
       grid.sync();
       x = p.dec_h_new[l];
       Kx = p.H;
     }
-    const float* query = p.dec_c_new[p.L - 1];
+    const float* query = p.gru ? p.dec_h_new[p.L - 1] : p.dec_c_new[p.L - 1];
     for (int i = blockIdx.x; i < num_tiles(p.A, N); i += gridDim.x)
       dense_tile(query, p.H, nullptr, 0, p.q_w, p.q_b, p.A, p.y, N, i, smem);
     grid.sync();
@@ -428,7 +440,7 @@ __global__ void __launch_bounds__(kThreads) beam_mega_kernel(MegaArgs p) {
 }
 
 bool set_dims(MegaArgs& p, const int* dims, int n_dims) {
-  if (n_dims != 14) return false;
+  if (n_dims != 15) return false;
   p.B = dims[0];
   p.k = dims[1];
   p.T = dims[2];
@@ -443,6 +455,7 @@ bool set_dims(MegaArgs& p, const int* dims, int n_dims) {
   p.eos = dims[11];
   p.go = dims[12];
   p.has_sp = dims[13];
+  p.gru = dims[14];
   return p.B >= 1 && p.B <= kMaxBatch && p.k >= 1 && p.k <= kMaxBeam &&
          p.k * p.V <= kSmem && p.L >= 1 && p.L <= kMaxLayers && p.T >= 1 &&
          p.Henc >= 1 && p.E >= 1 && p.Hl >= 1 && p.H >= 1 && p.A >= 1 &&
@@ -470,16 +483,20 @@ struct Carver {
 
 void carve(MegaArgs& p, Carver& c) {
   const long long N = static_cast<long long>(p.B) * p.k;
-  p.lm_c = c.floats(N * p.Hl);
+  // The c buffers of LSTM cells; null for GRU cells.
+  auto cs = [&](long long n) { return p.gru ? nullptr : c.floats(n); };
+  p.lm_c = cs(N * p.Hl);
   p.lm_h = c.floats(N * p.Hl);
-  p.lm_c_new = c.floats(N * p.Hl);
+  p.lm_c_new = cs(N * p.Hl);
   p.lm_h_new = c.floats(N * p.Hl);
   for (int l = 0; l < p.L; ++l) {
-    p.dec_c[l] = c.floats(N * p.H);
+    p.dec_c[l] = cs(N * p.H);
     p.dec_h[l] = c.floats(N * p.H);
-    p.dec_c_new[l] = c.floats(N * p.H);
+    p.dec_c_new[l] = cs(N * p.H);
     p.dec_h_new[l] = c.floats(N * p.H);
   }
+  p.rh = p.gru ? c.floats(N * max(p.Hl, p.H)) : nullptr;
+  p.ug = p.gru ? c.floats(N * max(p.Hl, p.H)) : nullptr;
   p.ctx = c.floats(N * p.Henc);
   p.ctx_new = c.floats(N * p.Henc);
   p.inputs = c.floats(N * p.E);
@@ -504,7 +521,7 @@ void carve(MegaArgs& p, Carver& c) {
 
 }  // namespace
 
-// dims: B, k, T, Henc, E, Hl, H, A, V, L, S, eos_id, go_id, has_sp.
+// dims: B, k, T, Henc, E, Hl, H, A, V, L, S, eos_id, go_id, has_sp, gru.
 // counts <- the floats and ints of scratch that e2e_beam_mega needs.
 E2E_EXPORT int e2e_beam_mega_scratch(const int* dims, int n_dims,
                                      long long* counts) {
@@ -518,8 +535,10 @@ E2E_EXPORT int e2e_beam_mega_scratch(const int* dims, int n_dims,
 }
 
 // ptrs: enc [B,T,Henc], hf [B,T,A], mask [B,T], emb [V,E], attn_v [A],
-//   lm_w, lm_b, sp_w|NULL, sp_b|NULL, ip_w, ip_b, q_w, q_b, ap_w, ap_b,
-//   out_w, out_b, then per decoder layer its kernel and bias, then tokens
+//   lm_w, lm_b, lm_wc|NULL, lm_bc|NULL, sp_w|NULL, sp_b|NULL, ip_w, ip_b,
+//   q_w, q_b, ap_w, ap_b, out_w, out_b, then per decoder layer w, b, wc|NULL,
+//   bc|NULL (an LSTM's kernel and bias; a GRU's gates, then its candidate
+//   kernel and bias), then tokens
 //   [B,S] int64, lens [B] int64, scores [B] f32, trace vals [S,B,k] f32,
 //   parent and token [S,B,k] int32 (the three NULL without a trace), and
 //   the float and int scratch of e2e_beam_mega_scratch's counts.
@@ -528,7 +547,7 @@ E2E_EXPORT int e2e_beam_mega(const void* const* ptrs, int n_ptrs,
                              const int* dims, int n_dims, double penalty,
                              cudaStream_t stream) {
   MegaArgs p{};
-  if (!set_dims(p, dims, n_dims) || n_ptrs != 25 + 2 * p.L)
+  if (!set_dims(p, dims, n_dims) || n_ptrs != 27 + 4 * p.L)
     return cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const float*>(ptrs[i]); };
   p.enc = in(0);
@@ -538,21 +557,30 @@ E2E_EXPORT int e2e_beam_mega(const void* const* ptrs, int n_ptrs,
   p.attn_v = in(4);
   p.lm_w = in(5);
   p.lm_b = in(6);
-  p.sp_w = in(7);
-  p.sp_b = in(8);
-  p.ip_w = in(9);
-  p.ip_b = in(10);
-  p.q_w = in(11);
-  p.q_b = in(12);
-  p.ap_w = in(13);
-  p.ap_b = in(14);
-  p.out_w = in(15);
-  p.out_b = in(16);
-  int at = 17;
+  p.lm_wc = in(7);
+  p.lm_bc = in(8);
+  p.sp_w = in(9);
+  p.sp_b = in(10);
+  p.ip_w = in(11);
+  p.ip_b = in(12);
+  p.q_w = in(13);
+  p.q_b = in(14);
+  p.ap_w = in(15);
+  p.ap_b = in(16);
+  p.out_w = in(17);
+  p.out_b = in(18);
+  int at = 19;
+  bool cand_ok = (p.lm_wc != nullptr) == (p.gru != 0) &&
+                 (p.lm_bc != nullptr) == (p.gru != 0);
   for (int l = 0; l < p.L; ++l) {
     p.dec_w[l] = in(at++);
     p.dec_b[l] = in(at++);
+    p.dec_wc[l] = in(at++);
+    p.dec_bc[l] = in(at++);
+    cand_ok = cand_ok && (p.dec_wc[l] != nullptr) == (p.gru != 0) &&
+              (p.dec_bc[l] != nullptr) == (p.gru != 0);
   }
+  if (!cand_ok) return cudaErrorInvalidValue;
   auto out = [&](int i) { return const_cast<void*>(ptrs[i]); };
   p.tokens = static_cast<long long*>(out(at++));
   p.lens = static_cast<long long*>(out(at++));

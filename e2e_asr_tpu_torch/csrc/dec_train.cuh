@@ -1,11 +1,12 @@
 // What the decoder's training kernels share: kernels #8/#9 (LSTM cells,
 // dec_train.cu) and #10 (GRU cells, dec_train_gru.cu). Scheduled
-// sampling, the additive attention of one batch row and its backward, and
-// the weight-gradient tiles that end each backward. Everything runs inside
+// sampling, the backward of the additive attention of one batch row
+// (attention.cuh has its forward), and the weight-gradient tiles that end
+// each backward. Everything runs inside
 // one persistent cooperative launch built from tiles.cuh.
 #pragma once
 
-#include "tiles.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -13,29 +14,6 @@ __device__ __forceinline__ const float* row_prev(const float* save, int t,
                                                  int B, int width,
                                                  const float* zeros) {
   return t > 0 ? save + static_cast<size_t>(t - 1) * B * width : zeros;
-}
-
-__device__ __forceinline__ size_t at(int t, int n, int B, int width) {
-  return (static_cast<size_t>(t) * B + n) * width;
-}
-
-// Gate sums [x | h][n, :] . W[:, g*Hc + u] (g = r, u) for one tile of 8
-// rows x 32 GRU units, W [Kx+Kh, 2Hc]; ep(n, u, sr, su).
-template <typename Ep>
-__device__ void gru_tile_ep(const float* x, int Kx, const float* h, int Kh,
-                            int Hc, const float* __restrict__ W, int N,
-                            int tile, float* smem, Ep ep) {
-  const int utiles = (Hc + kCols - 1) / kCols;
-  const int u0 = (tile % utiles) * kCols, n0 = (tile / utiles) * kRows;
-  const int rows = min(kRows, N - n0);
-  const int u = u0 + (threadIdx.x & 31);
-  tile_partials<2>(x, Kx, h, Kh, W, 2 * Hc, u, u < Hc, Hc, n0, rows, smem);
-  __syncthreads();
-  const int r = threadIdx.x / kCols, l = threadIdx.x % kCols;
-  if (r < rows && u0 + l < Hc)
-    ep(n0 + r, u0 + l, tile_sum<2>(smem, r, 0, l),
-       tile_sum<2>(smem, r, 1, l));
-  __syncthreads();
 }
 
 // Sampled index of row n at step t: argmax over v of logits[t-1] + gum[t],
@@ -83,64 +61,6 @@ __device__ void sample_tile(const float* logits, const float* gum,
       for (int v = lane; v < V; v += 32)
         oh[at(t, n, B, V) + v] = v == idx ? fl : 0.f;
     }
-  }
-  __syncthreads();
-}
-
-// Masked additive attention of batch row n at step t: scores
-// v . tanh(hf[n] + y), masked softmax over the T frames -> alpha[t, n]
-// [T], context ctx[t, n] = alpha @ enc[n] [E]. hf [B,T,A], enc [B,T,E],
-// amask [B,T], y [S,B,A]; smem holds at least A + T floats.
-__device__ void attention_row(const float* hf, const float* enc,
-                              const float* amask, const float* v,
-                              const float* y, float* alpha, float* ctx,
-                              int t, int n, int B, int T, int A, int E,
-                              float* smem) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ys = smem;      // [A]
-  float* sc = smem + A;  // [T] scores, then alpha
-  for (int a = threadIdx.x; a < A; a += blockDim.x)
-    ys[a] = __ldcg(y + at(t, n, B, A) + a);
-  __syncthreads();
-  for (int tt = warp; tt < T; tt += kWarps) {
-    const float* h = hf + (static_cast<size_t>(n) * T + tt) * A;
-    float s = 0.f;
-    for (int a = lane; a < A; a += 32)
-      s += __ldg(v + a) * tanhf(__ldg(h + a) + ys[a]);
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) sc[tt] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const float* am = amask + static_cast<size_t>(n) * T;
-    float m = -INFINITY;
-    for (int tt = lane; tt < T; tt += 32)
-      m = fmaxf(m, __ldg(am + tt) > 0.f ? sc[tt] : e2e::kNegInf);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float z = 0.f;
-    for (int tt = lane; tt < T; tt += 32) {
-      const float s = __ldg(am + tt) > 0.f ? sc[tt] : e2e::kNegInf;
-      const float e = expf(s - m) * __ldg(am + tt);
-      sc[tt] = e;
-      z += e;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      z += __shfl_xor_sync(0xffffffffu, z, off);
-    __syncwarp();
-    for (int tt = lane; tt < T; tt += 32) {
-      const float al = sc[tt] / z;
-      sc[tt] = al;
-      alpha[at(t, n, B, T) + tt] = al;
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const float* en = enc + static_cast<size_t>(n) * T * E + e;
-    float s = 0.f;
-    for (int tt = 0; tt < T; ++tt) s += sc[tt] * __ldg(en + tt * E);
-    ctx[at(t, n, B, E) + e] = s;
   }
   __syncthreads();
 }

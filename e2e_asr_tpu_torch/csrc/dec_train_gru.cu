@@ -172,8 +172,8 @@ __global__ void __launch_bounds__(kThreads) dec_train_gru_fwd_kernel(
     grid.sync();
     // F7: attention, one block per batch row.
     for (int n = blockIdx.x; n < B; n += gridDim.x)
-      attention_row(p.hf, p.enc, p.amask, p.v, p.y, p.alpha, p.ctx, t, n, B,
-                    T, A, E, smem);
+      attention_row(p.hf, p.enc, p.amask, p.v, p.y, p.alpha, p.ctx, t, n, n,
+                    B, T, A, E, smem);
     grid.sync();
     // F8: proj = [h | ctx] @ W_ap + b_ap.
     for (int tile = blockIdx.x; tile < num_tiles(D, B); tile += gridDim.x)

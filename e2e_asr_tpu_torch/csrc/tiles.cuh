@@ -1,11 +1,13 @@
 // Tiles of small dependent products inside one cooperative launch, shared
-// by the decoder kernels (dec_step.cu, dec_train.cu).
+// by the decoder kernels (dec_step.cu, attn_output.cu, beam_mega.cu,
+// dec_train.cu, dec_train_gru.cu).
 //
-// A tile is 8 rows x 32 output columns (or 32 LSTM units, i.e. their 4 x 32
-// gate columns). The 8 warps of a block split the reduction depth K; each
-// warp stages its rows' activations for its share of K in shared memory
-// (coalesced), then its 32 lanes read 32 neighbouring columns of W
-// (128-byte loads) and take the activations as shared-memory broadcasts.
+// A tile is 8 rows x 32 output columns (or 32 LSTM or GRU units, i.e. their
+// 4 x 32 or 2 x 32 gate columns). The 8 warps of a block split the
+// reduction depth K; each warp stages its rows' activations for its share
+// of K in shared memory (coalesced), then its 32 lanes read 32
+// neighbouring columns of W (128-byte loads) and take the activations as
+// shared-memory broadcasts.
 // The warps' partial sums meet in shared memory, where one thread per (row,
 // column) adds them up and hands the sum to an epilogue (bias, LSTM cell,
 // store). Activations are read with __ldcg (L2, never the non-coherent L1
@@ -165,6 +167,69 @@ __device__ inline void lstm_tile(const float* x, int Kx, const float* h,
                  c_out[at] = c;
                  h_out[at] = nh;
                });
+}
+
+// Gate sums [x | h][n, :] . W[:, g*Hc + u] (g = r, u) for one tile of 8
+// rows x 32 GRU units, W [Kx+Kh, 2Hc]; ep(n, u, sr, su).
+template <typename Ep>
+__device__ void gru_tile_ep(const float* x, int Kx, const float* h, int Kh,
+                            int Hc, const float* __restrict__ W, int N,
+                            int tile, float* smem, Ep ep) {
+  const int utiles = (Hc + kCols - 1) / kCols;
+  const int u0 = (tile % utiles) * kCols, n0 = (tile / utiles) * kRows;
+  const int rows = min(kRows, N - n0);
+  const int u = u0 + (threadIdx.x & 31);
+  tile_partials<2>(x, Kx, h, Kh, W, 2 * Hc, u, u < Hc, Hc, n0, rows, smem);
+  __syncthreads();
+  const int r = threadIdx.x / kCols, l = threadIdx.x % kCols;
+  if (r < rows && u0 + l < Hc)
+    ep(n0 + r, u0 + l, tile_sum<2>(smem, r, 0, l),
+       tile_sum<2>(smem, r, 1, l));
+  __syncthreads();
+}
+
+// One recurrent cell of a decoder step over N rows: an LSTM (w [Kx+Hc,
+// 4Hc] and b, gate order i, j, f, o; state c, h) or a TF-1 GRU (w | b the
+// gates [Kx+Hc, 2Hc] split r | u, wc | bc the candidate [Kx+Hc, Hc]; state
+// h alone, c and c_out null). No constant is added to a GRU gate.
+struct Cell {
+  const float *c, *h, *w, *b, *wc, *bc;
+  float *c_out, *h_out;
+};
+
+// The cell over all its tiles, input x [N, Kx]. An LSTM is one stage. A GRU
+// is two, with a grid barrier between them, because the candidate's
+// recurrent product needs all of r*h: first r, u = sigmoid([x | h] @ w + b)
+// into the scratch rh = r*h and ug = u ([N, Hc] each), then c = tanh([x |
+// rh] @ wc + bc) and h' = u*h + (1-u)*c. The caller syncs the grid after.
+__device__ inline void cell_stages(const Cell& cell, const float* x, int Kx,
+                                   int Hc, int N, float* rh, float* ug,
+                                   float* smem, cg::grid_group& grid) {
+  const int tiles = num_tiles(Hc, N);
+  if (cell.wc == nullptr) {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      lstm_tile(x, Kx, cell.h, cell.c, Hc, cell.w, cell.b, cell.c_out,
+                cell.h_out, N, t, smem);
+    return;
+  }
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    gru_tile_ep(x, Kx, cell.h, Hc, Hc, cell.w, N, t, smem,
+                [&](int n, int u, float sr, float su) {
+                  const size_t at = static_cast<size_t>(n) * Hc + u;
+                  const float r = e2e::sigmoid(sr + __ldg(cell.b + u));
+                  ug[at] = e2e::sigmoid(su + __ldg(cell.b + Hc + u));
+                  rh[at] = r * __ldcg(cell.h + at);
+                });
+  grid.sync();
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    dense_tile_ep(x, Kx, rh, Hc, cell.wc, Hc, N, t, smem,
+                  [&](int n, int u, float s) {
+                    const size_t at = static_cast<size_t>(n) * Hc + u;
+                    const float c = tanhf(s + __ldg(cell.bc + u));
+                    const float uu = __ldcg(ug + at);
+                    cell.h_out[at] =
+                        uu * __ldcg(cell.h + at) + (1.f - uu) * c;
+                  });
 }
 
 // One cooperative launch of `kernel` with a grid of min(tiles, resident).

@@ -21,7 +21,11 @@ Two routes, chosen from the shapes as the reference chooses
   additive attention in plain PyTorch, kernel C (output projections +
   log_softmax) and kernel D (selection), the state bookkeeping around them
   in plain PyTorch: `kernels/beam_mega.search`, the loop that is #15's
-  plain version when it is given the plain versions of B, C and D.
+  plain version when it is given the plain versions of B, C and D. Where
+  E2E_ASR_FUSED_ATTN opts in (`attn_output.attn_output_fits`), kernel #13
+  takes the attention and C's place, as the reference's
+  `_dec_step_fused`.
+Both routes take LSTM and GRU decoders.
 The features the megakernel's reference excludes (LM fusion, coverage,
 n-best, joint CTC, biasing, ILM, the transformer decoder) raise before
 either route.
@@ -35,7 +39,8 @@ from __future__ import annotations
 
 import torch
 
-from e2e_asr_tpu_torch.kernels import beam_mega, beam_select, dec_step
+from e2e_asr_tpu_torch.kernels import (attn_output, beam_mega, beam_select,
+                                       dec_step)
 from e2e_asr_tpu_torch.models import attn_decoder
 from e2e_asr_tpu_torch.config import BeamConfig, DecoderConfig
 
@@ -43,7 +48,7 @@ from e2e_asr_tpu_torch.config import BeamConfig, DecoderConfig
 def check_supported(dec_cfg: DecoderConfig, beam_cfg: BeamConfig, *,
                     lm_params=None, return_nbest: bool = False,
                     ctc_scorer=None, bias=None) -> None:
-    attn_decoder.check_decodable(dec_cfg)
+    attn_decoder.check_supported(dec_cfg)
     todo = "is not ported yet (ROADMAP.md Queue 1, 'Decode features')"
     if lm_params is not None or beam_cfg.lm_weight != 0.0:
         raise NotImplementedError(f"RNN-LM shallow fusion {todo}")
@@ -87,7 +92,7 @@ def beam_decode(dec_params: dict, dec_cfg: DecoderConfig,
         ctx = attn_decoder.make_attn_context(dec_params, enc_states,
                                              enc_lens)
         return beam_mega.beam_decode_mega(
-            dec_params, dec_cfg, beam_cfg, ctx.enc_states.contiguous(),
+            dec_params, dec_cfg, beam_cfg, ctx.enc_states,
             ctx.hidden_features, ctx.mask)
     return beam_decode_steps(dec_params, dec_cfg, beam_cfg, enc_states,
                              enc_lens)
@@ -98,12 +103,15 @@ def beam_decode_steps(dec_params: dict, dec_cfg: DecoderConfig,
                       enc_lens: torch.Tensor):
     """The per-step route of `beam_decode`, at any batch size: the same
     arguments (no decode features) and results. Each step is kernels B
-    (#11), C (#12) and D (#14) around the attention (kernels/beam_mega.py
-    `search`)."""
+    (#11), C (#12) and D (#14) around the attention, or B, #13 and D where
+    `attn_output_fits` admits #13 (kernels/beam_mega.py `search`)."""
     check_supported(dec_cfg, beam_cfg)
     ctx = attn_decoder.make_attn_context(dec_params, enc_states, enc_lens)
-    return beam_mega.search(dec_params, dec_cfg, beam_cfg, ctx.enc_states,
-                            ctx.hidden_features, ctx.mask,
-                            cells=dec_step.cells_fused,
-                            output=dec_step.output_fused,
-                            select=beam_select.beam_select)
+    B, T, Henc = ctx.enc_states.shape
+    fused_attn = attn_output.attn_output_fits(
+        B, beam_cfg.beam_size, T, ctx.hidden_features.shape[-1], Henc)
+    return beam_mega.search(
+        dec_params, dec_cfg, beam_cfg, ctx.enc_states, ctx.hidden_features,
+        ctx.mask, cells=dec_step.cells_fused, output=dec_step.output_fused,
+        select=beam_select.beam_select,
+        attn=attn_output.attn_output_fused if fused_attn else None)

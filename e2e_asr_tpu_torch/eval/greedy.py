@@ -1,7 +1,8 @@
 """Greedy decoding evaluator (port of e2e_asr_tpu/eval/greedy.py,
 attention family): batched greedy decode with early exit
-(models/seq2seq.apply_greedy: the encoder on kernel A, each step on kernels
-B and C), detokenization, filler filtering, the edit distance, and the
+(models/seq2seq.apply_greedy: the encoder on its kernels, each step on
+kernels B and C, or B and #13 where E2E_ASR_FUSED_ATTN opts in; LSTM or
+GRU decoders), detokenization, filler filtering, the edit distance, and the
 gold / raw / decoded files.
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
@@ -36,7 +37,7 @@ class GreedyEvaluator:
         """Decodes on `device` (default: the CUDA card; raises without
         one)."""
         seq2seq.check_supported(cfg)
-        attn_decoder.check_decodable(cfg.decoders["char"])
+        attn_decoder.check_supported(cfg.decoders["char"])
         if mesh is not None:
             raise NotImplementedError("the data-parallel decode mesh is not "
                                       "ported yet (ROADMAP.md Queue 1, "

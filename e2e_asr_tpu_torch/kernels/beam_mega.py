@@ -6,12 +6,14 @@ reference's beam search takes at B <= 2 (eval/beam.py routes to it).
 
 Computes what eval/beam.py's per-step search computes, with the same
 contract: up to max_steps steps, stopping once no hypothesis is live, each
-step the decoder cells, the additive attention over the precomputed hidden
-features, the output projections and log_softmax, the top-k selection with
-the k-slot finished buffer and the word-insertion penalty, and the parents'
-states gathered into compacted live slots; then the best of finished u
-live. Returns (tokens [B, S] int64, lens [B] int64, scores [B] float32);
-positions past a length are 0.
+step the decoder cells (LSTM or GRU; the attention query is the top c of
+LSTM cells and the top h of GRU cells), the additive attention over the
+precomputed hidden features, the output projections and log_softmax, the
+top-k selection with the k-slot finished buffer and the word-insertion
+penalty, and the parents' states gathered into compacted live slots (a GRU
+carries h alone); then the best of finished u live. Returns (tokens [B, S]
+int64, lens [B] int64, scores [B] float32); positions past a length are
+0.
 
 Bound on the H100: the serial chain of about 10 + L small dependent
 stages a step; at B=1, k=4 a step is about 12 MFLOP over 6 MB of weights
@@ -22,8 +24,9 @@ Design: one cooperative persistent launch with a grid barrier between the
 stages (details in the source). Its own limits, which eval/beam.py checks
 from the shapes before it takes this route (`fits`): beam size k <= 16,
 k * V <= 8192 candidates (they sit in the selection block's shared
-memory), at most 8 decoder layers. LSTM cells in float32; the GRU branch
-raises (ROADMAP.md Queue 1, "GRU decode").
+memory), at most 8 decoder layers, B <= 64; LSTM or GRU cells, float32. A
+GRU cell takes two grid barriers where an LSTM cell takes one (its
+candidate's recurrent product needs all of r*h).
 
 `trace=True` also returns each step's selection, {"vals" [steps, B, k]
 float32, "parent", "token" [steps, B, k] int32}, for holding the kernel to
@@ -33,15 +36,17 @@ from __future__ import annotations
 
 import torch
 
-from e2e_asr_tpu_torch.core.cells import LSTMState
+from e2e_asr_tpu_torch.core.cells import (LSTMState, gru_zero_state,
+                                          lstm_zero_state)
 from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID
-from e2e_asr_tpu_torch.kernels import beam_select, build, dec_step
+from e2e_asr_tpu_torch.kernels import attn_output, beam_select, build, dec_step
 
 NEG_INF = beam_select.NEG_INF
 MAX_BEAM = 16
 MAX_CANDIDATES = 8192
 MAX_LAYERS = 8
-LAUNCHES = 0
+LAUNCHES = 0        # with LSTM cells
+GRU_LAUNCHES = 0    # with GRU cells
 
 
 def fits(beam_size: int, vocab_size: int, num_layers: int) -> bool:
@@ -51,39 +56,38 @@ def fits(beam_size: int, vocab_size: int, num_layers: int) -> bool:
             and 1 <= num_layers <= MAX_LAYERS)
 
 
-def _check(cfg) -> None:
-    if not cfg.use_lstm:
-        raise NotImplementedError("GRU decoder cells are not ported yet "
-                                  "(ROADMAP.md Queue 1, 'GRU decode')")
-
-
-def _out_proj(params: dict, cfg) -> dict:
-    return params["output_proj_ind" if cfg.ind_softmax else "output_proj"]
+def _map(fn, state):
+    """fn over a cell state: both halves of an LSTMState, a GRU's h."""
+    if isinstance(state, LSTMState):
+        return LSTMState(*map(fn, state))
+    return fn(state)
 
 
 @torch.no_grad()
 def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
-           select, trace: bool = False):
+           select, attn=None, trace: bool = False):
     """The beam search a step at a time, over N = B*k rows (row = b*k + j):
-    cells(params, x, context, lm_state, dec_states) -> (lm_state,
-    dec_states, query projection y), the additive attention, output(params,
-    cfg, query, context) -> log-probs [N, V], select(scores, logp, alive,
-    num_finished, eos_id=) -> kernel #14's dict, then the finished buffer,
-    the compaction of the live slots (empty ones zero) and the best of
-    finished u live. With the plain versions of #11, #12 and #14 it is the
-    plain version of this kernel; with the kernels, eval/beam.py's per-step
-    route. Arguments and results as `beam_decode_mega`'s."""
-    _check(cfg)
+    cells(params, x, context, lm_state, dec_states, use_lstm=) ->
+    (lm_state, dec_states, query projection y), the additive attention
+    (`attn_output.attend`), output(params, cfg, query, context) ->
+    log-probs [N, V], or in their place attn(params, cfg, y, query, hf,
+    enc, mask, k=) -> (log-probs, context, alpha) where given (kernel #13's
+    signature), select(scores, logp, alive, num_finished, eos_id=) ->
+    kernel #14's dict, then the finished buffer, the compaction of the live
+    slots (empty ones zero) and the best of finished u live. The query is
+    the top cell's c for LSTM cells and its h for GRU cells. With the plain
+    versions of #11, #12 and #14 it is the plain version of this kernel;
+    with the kernels, eval/beam.py's per-step route. Arguments and results
+    as `beam_decode_mega`'s."""
     B, _, Henc = enc.shape
     k, S = beam_cfg.beam_size, beam_cfg.max_steps
     dev = enc.device
     emb = params["embedding"]
-    zeros = lambda w: torch.zeros(B * k, w, device=dev)  # noqa: E731
-    lm = LSTMState(zeros(cfg.lm_hidden_size), zeros(cfg.lm_hidden_size))
-    dec = tuple(LSTMState(zeros(cfg.hidden_size_dec),
-                          zeros(cfg.hidden_size_dec))
+    zero = lstm_zero_state if cfg.use_lstm else gru_zero_state
+    lm = zero((B * k,), cfg.lm_hidden_size, device=dev)
+    dec = tuple(zero((B * k,), cfg.hidden_size_dec, device=dev)
                 for _ in params["dec_cells"])
-    context = zeros(Henc)
+    context = torch.zeros(B * k, Henc, device=dev)
     inputs = emb[torch.full((B * k,), GO_ID, device=dev)]
     alive = (torch.arange(k, device=dev) == 0).repeat(B, 1)
     scores = torch.where(alive, 0.0, NEG_INF)
@@ -97,13 +101,14 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
     steps = []
     t = 0
     while t < S and bool(alive.any()):
-        lm_new, dec_new, y = cells(params, inputs, context, lm, dec)
-        query = dec_new[-1].c
-        s = (params["attn_v"] * torch.tanh(
-            hf[:, None] + y.view(B, k, 1, -1))).sum(-1)
-        s = torch.where(mask[:, None] > 0, s, NEG_INF)
-        ctx_new = torch.bmm(torch.softmax(s, dim=-1), enc).view(B * k, Henc)
-        logp = output(params, cfg, query, ctx_new)
+        lm_new, dec_new, y = cells(params, inputs, context, lm, dec,
+                                   use_lstm=cfg.use_lstm)
+        query = dec_new[-1].c if cfg.use_lstm else dec_new[-1]
+        if attn is not None:
+            logp, ctx_new, _ = attn(params, cfg, y, query, hf, enc, mask, k=k)
+        else:
+            ctx_new, _ = attn_output.attend(params, y, hf, enc, mask, k=k)
+            logp = output(params, cfg, query, ctx_new)
         sel = select(scores, logp.view(B, k, -1), alive, fin_count,
                      eos_id=EOS_ID)
         if trace:
@@ -123,8 +128,8 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
         src = (rows * k + torch.gather(parent, 1, order)).flatten()
         keep = alive.reshape(-1, 1)
         take = lambda x: torch.where(keep, x[src], 0.0)  # noqa: E731
-        lm = LSTMState(take(lm_new.c), take(lm_new.h))
-        dec = tuple(LSTMState(take(d.c), take(d.h)) for d in dec_new)
+        lm = _map(take, lm_new)
+        dec = tuple(_map(take, d) for d in dec_new)
         context = take(ctx_new)
         inputs = torch.where(
             keep, emb[torch.gather(token, 1, order).flatten()], 0.0)
@@ -161,8 +166,7 @@ def beam_decode_mega(params: dict, cfg, beam_cfg, enc, hf, mask, *,
                      trace: bool = False):
     """The whole search in one launch on the card; the plain version for
     tensors on the CPU. Arguments and results as the plain version's."""
-    global LAUNCHES
-    _check(cfg)
+    global LAUNCHES, GRU_LAUNCHES
     if enc.device.type == "cpu":
         return beam_decode_mega_reference(params, cfg, beam_cfg, enc, hf,
                                           mask, trace=trace)
@@ -181,7 +185,7 @@ def beam_decode_mega(params: dict, cfg, beam_cfg, enc, hf, mask, *,
                          f"(k <= {MAX_BEAM}, k*V <= {MAX_CANDIDATES}, "
                          f"L <= {MAX_LAYERS})")
     sp = params.get("simple_proj")
-    out = _out_proj(params, cfg)
+    out = dec_step.out_proj(params, cfg)
     f32 = torch.float32
     req = build.require
     req(enc, "enc", f32, (B, T, Henc), dev)
@@ -189,24 +193,36 @@ def beam_decode_mega(params: dict, cfg, beam_cfg, enc, hf, mask, *,
     req(mask, "mask", f32, (B, T), dev)
     req(params["embedding"], "embedding", f32, (V, E), dev)
     req(params["attn_v"], "attn_v", f32, (A,), dev)
-    weights = {"lm_cell": (E + Hl, 4 * Hl), "input_proj": (H + Henc, E),
-               "attn_query": (H, A), "attn_proj": (H + Henc, H)}
+    weights = {"input_proj": (params["input_proj"], H + Henc, E),
+               "attn_query": (params["attn_query"], H, A),
+               "attn_proj": (params["attn_proj"], H + Henc, H),
+               "output_proj": (out, H, V)}
     if sp is not None:
-        weights["simple_proj"] = (Hl, H)
-    for name, shape in weights.items():
-        req(params[name]["kernel"], f"{name}/kernel", f32, shape, dev)
-        req(params[name]["bias"], f"{name}/bias", f32, shape[-1:], dev)
-    req(out["kernel"], "output_proj/kernel", f32, (H, V), dev)
-    req(out["bias"], "output_proj/bias", f32, (V,), dev)
-    for layer, cp in enumerate(params["dec_cells"]):
-        in_dim = E if layer == 0 else H
-        req(cp["kernel"], f"dec_cells/{layer}/kernel", f32,
-            (in_dim + H, 4 * H), dev)
-        req(cp["bias"], f"dec_cells/{layer}/bias", f32, (4 * H,), dev)
+        weights["simple_proj"] = (sp, Hl, H)
+    # An LSTM cell: (kernel, bias); a GRU cell: (gates kernel, bias,
+    # candidate kernel, bias), the gates split r | u.
+    cell_ptrs = []
+    for name, cp, in_dim, hid in (
+            ("lm_cell", params["lm_cell"], E, Hl),
+            *((f"dec_cells/{layer}", cp, E if layer == 0 else H, H)
+              for layer, cp in enumerate(params["dec_cells"]))):
+        if cfg.use_lstm:
+            weights[name] = (cp, in_dim + hid, 4 * hid)
+            cell_ptrs.append([cp["kernel"], cp["bias"], None, None])
+        else:
+            weights[f"{name}/gates"] = (cp["gates"], in_dim + hid, 2 * hid)
+            weights[f"{name}/candidate"] = (cp["candidate"], in_dim + hid,
+                                            hid)
+            cell_ptrs.append([cp["gates"]["kernel"], cp["gates"]["bias"],
+                              cp["candidate"]["kernel"],
+                              cp["candidate"]["bias"]])
+    for name, (w, fan_in, fan_out) in weights.items():
+        req(w["kernel"], f"{name}/kernel", f32, (fan_in, fan_out), dev)
+        req(w["bias"], f"{name}/bias", f32, (fan_out,), dev)
 
     lib = build.library()
     dims = build.ints(B, k, T, Henc, E, Hl, H, A, V, L, S, EOS_ID, GO_ID,
-                      int(sp is not None))
+                      int(sp is not None), int(not cfg.use_lstm))
     counts = (torch.zeros(2, dtype=torch.int64))
     build.check(lib.e2e_beam_mega_scratch(dims, len(dims), counts.data_ptr()),
                 "beam_decode_mega")
@@ -221,22 +237,24 @@ def beam_decode_mega(params: dict, cfg, beam_cfg, enc, hf, mask, *,
               torch.full((S, B, k), -1, dtype=torch.int32, device=dev),
               torch.full((S, B, k), -1, dtype=torch.int32, device=dev)]
     ptr_list = [enc, hf, mask, params["embedding"], params["attn_v"],
-                params["lm_cell"]["kernel"], params["lm_cell"]["bias"],
-                None if sp is None else sp["kernel"],
+                *cell_ptrs[0], None if sp is None else sp["kernel"],
                 None if sp is None else sp["bias"],
                 params["input_proj"]["kernel"], params["input_proj"]["bias"],
                 params["attn_query"]["kernel"], params["attn_query"]["bias"],
                 params["attn_proj"]["kernel"], params["attn_proj"]["bias"],
                 out["kernel"], out["bias"]]
-    for cp in params["dec_cells"]:
-        ptr_list += [cp["kernel"], cp["bias"]]
+    for ptrs in cell_ptrs[1:]:
+        ptr_list += ptrs
     ptr_list += [tokens, lens, scores, *tr, scratch_f, scratch_i]
     with torch.cuda.device(dev):
         err = lib.e2e_beam_mega(build.ptrs(*ptr_list), len(ptr_list), dims,
                                 len(dims), float(beam_cfg.word_ins_penalty),
                                 build.stream_ptr(dev))
     build.check(err, "beam_decode_mega")
-    LAUNCHES += 1
+    if cfg.use_lstm:
+        LAUNCHES += 1
+    else:
+        GRU_LAUNCHES += 1
     if not trace:
         return tokens, lens, scores
     ran = int((tr[1][:, 0, 0] >= 0).sum())

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "e2e_dec_train_gru_fwd": [_P, _I, _P, _P],
     "e2e_dec_train_gru_bwd": [_P, _I, _P, _P],
     "e2e_cells_fused": [_P, _I, _P, _I, _P],
+    "e2e_attn_output_fused": [_P, _I, _P, _I, _P],
     "e2e_output_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "e2e_beam_select": [_P, _P, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],

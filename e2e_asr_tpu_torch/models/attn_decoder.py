@@ -11,13 +11,14 @@ Per-step structure, order preserved from the reference:
   -> AttnProjection of [query, context] -> OutputProjection logits.
 The attention query is the top cell's **c** state for LSTM cells and its
 **h** for GRU cells (TF-1 GRUCell; reference decoder.py:64-82). At
-inference the step is kernels B and C around the attention (eval/beam.py,
-and the greedy `apply_infer_early`); GRU decoders do not decode yet
-(`check_decodable`). In training, `apply_train` runs all steps with
-scheduled sampling (one coin per step for the whole batch, gumbel-max
-sampling from the previous step's logits) and dropout: as the plain scan
-over `step` on the CPU, and as the fused training kernels on the card
-(kernels/dec_train.py for LSTM cells, kernels/dec_train_gru.py for GRU).
+inference the step is kernels B and C around the attention, or B and #13
+with the attention folded in when E2E_ASR_FUSED_ATTN opts in (eval/beam.py,
+and the greedy `apply_infer_early`), for either cell type. In training,
+`apply_train` runs all steps with scheduled sampling (one coin per step
+for the whole batch, gumbel-max sampling from the previous step's logits)
+and dropout: as the plain scan over `step` on the CPU, and as the fused
+training kernels on the card (kernels/dec_train.py for LSTM cells,
+kernels/dec_train_gru.py for GRU).
 """
 from __future__ import annotations
 
@@ -30,9 +31,8 @@ from e2e_asr_tpu_torch.core import cells
 from e2e_asr_tpu_torch.core.layers import (dense, dense_params,
                                            glorot_uniform, uniform_init)
 from e2e_asr_tpu_torch.data.text import EOS_ID
-from e2e_asr_tpu_torch.kernels import dec_step, dec_train, dec_train_gru
-
-NEG_INF = -1e30
+from e2e_asr_tpu_torch.kernels import (attn_output, dec_step, dec_train,
+                                       dec_train_gru)
 
 
 class AttnContext(NamedTuple):
@@ -54,16 +54,6 @@ def check_supported(cfg: DecoderConfig) -> None:
     if cfg.decoder_type != "rnn":
         raise NotImplementedError("the transformer decoder is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Transformer family')")
-
-
-def check_decodable(cfg: DecoderConfig) -> None:
-    """Decoding (greedy, beam, serving) takes LSTM decoders: the GRU
-    branches of kernels #11 and #15 come with the GRU decode."""
-    check_supported(cfg)
-    if not cfg.use_lstm:
-        raise NotImplementedError(
-            "decoding GRU decoders (the GRU branches of kernels #11 and "
-            "#15) is not ported yet (ROADMAP.md Queue 1, 'GRU decode')")
 
 
 def init(gen: torch.Generator, cfg: DecoderConfig, attn_size: int, *,
@@ -103,7 +93,9 @@ def init(gen: torch.Generator, cfg: DecoderConfig, attn_size: int, *,
 
 def make_attn_context(params: dict, enc_states: torch.Tensor,
                       enc_lens: torch.Tensor) -> AttnContext:
-    """Precompute W*h_enc and the validity mask."""
+    """Precompute W*h_enc and the validity mask (enc_states made
+    contiguous, as the decode kernels take them)."""
+    enc_states = enc_states.contiguous()
     hidden_features = enc_states @ params["attn_w"]
     T_enc = enc_states.shape[1]
     mask = (torch.arange(T_enc, device=enc_states.device)[None, :]
@@ -111,24 +103,13 @@ def make_attn_context(params: dict, enc_states: torch.Tensor,
     return AttnContext(enc_states, hidden_features, mask)
 
 
-def alpha_context(params: dict, ctx: AttnContext, y: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Attention from a precomputed query projection y [B, k, A] over a
-    beam axis k -> (context [B, k, H_enc], alpha [B, k, T_enc])."""
-    s = torch.sum(params["attn_v"] * torch.tanh(
-        ctx.hidden_features[:, None, :, :] + y[:, :, None, :]), dim=-1)
-    s = torch.where(ctx.mask[:, None, :] > 0, s, torch.full_like(s, NEG_INF))
-    alpha = torch.softmax(s, dim=-1)
-    return torch.einsum("bkt,bth->bkh", alpha, ctx.enc_states), alpha
-
-
 def attention(params: dict, ctx: AttnContext, query: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked Bahdanau attention for query [B, Q] -> (context [B, H_enc],
     alpha [B, T_enc])."""
     y = dense(params["attn_query"], query)
-    context, alpha = alpha_context(params, ctx, y[:, None, :])
-    return context[:, 0], alpha[:, 0]
+    return attn_output.attend(params, y, ctx.hidden_features, ctx.enc_states,
+                              ctx.mask, k=1)
 
 
 def zero_state(cfg: DecoderConfig, batch: int, ctx: AttnContext) -> DecState:
@@ -273,14 +254,19 @@ def apply_infer_early(params: dict, cfg: DecoderConfig, go_ids: torch.Tensor,
     go_ids [B] until every row has emitted <eos> or max_output steps ran.
     Positions past a row's <eos> are <pad>. Returns ids [max_output, B].
 
-    A step is kernel B (dec_step.cells_fused), the additive attention and
-    kernel C (dec_step.output_fused, log-probs, argmax-equal to the
-    logits), as the reference's fused inference step; their plain versions
-    run for CPU tensors."""
-    check_decodable(cfg)
+    A step is the reference's fused inference step (`_fused_infer_step`),
+    for LSTM or GRU cells: kernel B (dec_step.cells_fused), then the
+    additive attention and kernel C (dec_step.output_fused), or kernel #13
+    (attn_output.attn_output_fused) where `attn_output_fits` admits it;
+    log-probs, argmax-equal to the logits. Their plain versions run for CPU
+    tensors."""
+    check_supported(cfg)
     B = go_ids.shape[0]
     emb = params["embedding"]
     ctx = make_attn_context(params, enc_states, enc_lens)
+    T_enc, H_enc = ctx.enc_states.shape[1:]
+    fused_attn = attn_output.attn_output_fits(
+        B, 1, T_enc, params["attn_query"]["kernel"].shape[-1], H_enc)
     state = zero_state(cfg, B, ctx)
     lm_input = emb[go_ids.long()]
     done = torch.zeros(B, dtype=torch.bool, device=emb.device)
@@ -288,15 +274,20 @@ def apply_infer_early(params: dict, cfg: DecoderConfig, go_ids: torch.Tensor,
     for t in range(max_output):
         new_lm, new_dec, y = dec_step.cells_fused(
             params, lm_input, state.context, state.lm_state,
-            state.cell_states)
-        query = new_dec[-1].c
-        context, alpha = alpha_context(params, ctx, y[:, None, :])
-        context = context[:, 0].contiguous()
-        logp = dec_step.output_fused(params, cfg, query, context)
+            state.cell_states, use_lstm=cfg.use_lstm)
+        query = _query_of(cfg, new_dec)
+        if fused_attn:
+            logp, context, alpha = attn_output.attn_output_fused(
+                params, cfg, y, query, ctx.hidden_features, ctx.enc_states,
+                ctx.mask, k=1)
+        else:
+            context, alpha = attn_output.attend(
+                params, y, ctx.hidden_features, ctx.enc_states, ctx.mask, k=1)
+            logp = dec_step.output_fused(params, cfg, query, context)
         ids = torch.where(done, 0, torch.argmax(logp, dim=-1))
         out[t] = ids
         done = done | (ids == eos_id)
-        state = DecState(new_dec, new_lm, context, alpha[:, 0])
+        state = DecState(new_dec, new_lm, context, alpha)
         lm_input = emb[ids]
         if bool(done.all()):
             break

@@ -12,9 +12,11 @@ checkpoint, LR-decay and early-stop policies of the recipe:
   the previous 3 checkpoints after min_steps (down to lr_floor), early stop
   when the best has not improved over early_stop_window checkpoints at the
   floor LR, the best-model save (2 kept) and the train-dir save;
-- resume from the latest checkpoint of train_dir.
-The reference's TensorBoard summaries are not written (the same numbers
-are printed).
+- resume from the latest checkpoint of train_dir;
+- TensorBoard summaries in train_dir/summary (core/summary.py), under the
+  JAX Trainer's tags and at its global steps: "ASR Perplexity", "Learning
+  rate" and "Frames per sec" each cadence, "ASR Error" with each dev
+  score, "LM Perplexity" every steps_per_checkpoint LM steps.
 
 The steps run on `device` (default: the CUDA card): on the card through
 the hand-written kernels, on the CPU through their plain versions. The
@@ -25,11 +27,9 @@ seeds its key; the coins and the data order use the reference's seeds.
 TrainConfig fields the port does not honour raise NotImplementedError,
 naming their ROADMAP.md item, when they differ from their default
 (`UNPORTED`); so do bf16 compute (set compute_dtype="float32") and the
-non-attention families. Before its first step, `train` raises where the
-run would reach what the port lacks: NotImplementedError when the dev
-cadence would decode a GRU char decoder (`GreedyEvaluator`; ROADMAP.md
-Queue 1, 'GRU decode'), ValueError when the LM task would run on one (the
-JAX package has none, models/rnn_lm.py). `platform` and `score_unit` are
+non-attention families. Before its first step, `train` raises ValueError
+where the LM task would run on a GRU char decoder (the JAX package has no
+GRU LM, models/rnn_lm.py). `platform` and `score_unit` are
 the command line's (cli/main.py), as in the JAX package, whose Trainer
 reads neither.
 """
@@ -48,6 +48,7 @@ import torch
 from e2e_asr_tpu_torch.config import ExperimentConfig, TrainConfig
 from e2e_asr_tpu_torch.core import checkpoint as ckpt_lib
 from e2e_asr_tpu_torch.core.device import resolve
+from e2e_asr_tpu_torch.core.summary import SummaryWriter
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.lm import LMDataset
 from e2e_asr_tpu_torch.data.speech import SpeechDataset, prefetch
@@ -210,12 +211,14 @@ class Trainer:
                      if dev_set is not None and rev_vocab else None)
         if lm_data is not None:
             rnn_lm.check_cell(cfg.decoders["char"].use_lstm)
+        writer = SummaryWriter(path.join(tc.train_dir, "summary"))
 
         asr_err_best = self._read_best()
         previous_errs = self._read_err_history()
         if previous_errs and not (step_lib.get_lr(state) > tc.lr_floor):
             if not check_progress(previous_errs, tc.early_stop_window):
                 print("No improvement in 10 checkpoints")
+                writer.close()
                 return state
 
         print(f"\nBest ASR error rate - {asr_err_best:f}")
@@ -260,6 +263,8 @@ class Trainer:
                         ppl = math.exp(mean_l) if mean_l < 300 else float("inf")
                         print(f"LM steps: {int(state.lm_global_step)}, "
                               f"Perplexity: {ppl:f}")
+                        writer.scalar("LM Perplexity", ppl,
+                                      int(state.global_step))
                         lm_loss_acc = torch.zeros((), device=self.device)
                     continue
 
@@ -277,8 +282,8 @@ class Trainer:
                 if current_step % tc.steps_per_checkpoint == 0:
                     mean_loss = float(loss_acc) / tc.steps_per_checkpoint
                     state, asr_err_best, stop = self._checkpoint_cadence(
-                        state, evaluator, dev_set, mean_loss, previous_errs,
-                        asr_err_best, ckpt_start)
+                        state, writer, evaluator, dev_set, mean_loss,
+                        previous_errs, asr_err_best, ckpt_start)
                     loss_acc = torch.zeros((), device=self.device)
                     ckpt_start = time.time()
 
@@ -287,11 +292,13 @@ class Trainer:
             epoch += 1
             print(f"\nEPOCH TIME: {time.time() - epc_start:.1f}s\n")
             print("Reshuffling ASR training data!")
+        writer.close()
         return state
 
     # ------------------------------------------------------------------
-    def _checkpoint_cadence(self, state, evaluator, dev_set, loss_acc,
-                            previous_errs, asr_err_best, ckpt_start):
+    def _checkpoint_cadence(self, state, writer, evaluator, dev_set,
+                            loss_acc, previous_errs, asr_err_best,
+                            ckpt_start):
         tc = self.train_cfg
         stop = False
         if not math.isfinite(loss_acc):
@@ -311,6 +318,9 @@ class Trainer:
         print(f"Step {gstep} Learning rate {lr:.4f} Checkpoint time "
               f"{elapsed:.2f} Perplexity {ppl:.2f} "
               f"Frames/sec {frames_per_sec:,.0f}")
+        writer.scalar("ASR Perplexity", ppl, gstep)
+        writer.scalar("Learning rate", lr, gstep)
+        writer.scalar("Frames per sec", frames_per_sec, gstep)
 
         if evaluator is not None and dev_set is not None:
             t0 = time.time()
@@ -319,6 +329,7 @@ class Trainer:
                   f"{time.time() - t0:.1f}s")
             with open(path.join(tc.train_dir, "asr_err.txt"), "a") as f:
                 f.write(str(asr_err_cur) + "\n")
+            writer.scalar("ASR Error", asr_err_cur, gstep)
 
             if gstep >= tc.min_steps:
                 if (len(previous_errs) > 3

@@ -113,7 +113,8 @@ def test_main_trains_and_evaluates_on_the_cpu(workspace, monkeypatch,
     with open(os.path.join(train_dir, "parameters.txt"), "rb") as f:
         assert f.read() == jax_params_txt
     assert sorted(os.listdir(train_dir)) == [
-        "asr.ckpt-2.npz", "asr_err.txt", "checkpoint", "parameters.txt"]
+        "asr.ckpt-2.npz", "asr_err.txt", "checkpoint", "parameters.txt",
+        "summary"]
     capsys.readouterr()
 
     best = want.train.best_model_dir
@@ -150,7 +151,7 @@ def test_what_the_port_lacks_raises(workspace, monkeypatch):
         main.main(_args(root, "-platform", ""))
     with pytest.raises(ValueError, match="platform"):
         main.main(_args(root, "-platform", "tpu"))
-    for extra in (["-dist_coordinator", "localhost:1"], ["-ssl"], ["-gru"],
+    for extra in (["-dist_coordinator", "localhost:1"], ["-ssl"],
                   ["-ema_decay", "0.9"], ["-lora_rank", "2"],
                   ["-model_family", "ctc"],
                   ["-dev", "-eval_ema"], ["-dev", "-quantize", "int8"],

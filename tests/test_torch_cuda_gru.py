@@ -2,8 +2,12 @@
 on the card (marker `cuda`; they skip without a GPU): kernel #6 (one
 direction with and without the carry mask, both directions in one launch;
 inference and training forms), kernel #7 (one and both directions), kernel
-#10's forward and backward at a char-like and a phone-like vocabulary, and
-the whole GRU-family ASR step (char + phone) on the card against the CPU.
+#10's forward and backward at a char-like and a phone-like vocabulary, the
+whole GRU-family ASR step (char + phone) on the card against the CPU, and
+the GRU decode: kernel #11's GRU branch (one layer, and two with
+SimpleProjection), kernel #15's GRU branch (agreeing, or parting at a
+near-tie of 1e-3 as tests/test_torch_cuda_beam_mega.py's cases), and a
+greedy and a beam decode of a GRU decoder on the card against the CPU.
 
 These files import no JAX, so they also run where JAX is not installed:
     pytest --noconftest -m cuda tests/test_torch_cuda*.py
@@ -18,10 +22,14 @@ import torch
 
 from e2e_asr_tpu_torch.config import (DecoderConfig, EncoderConfig, LMConfig,
                                       Seq2SeqConfig)
+from e2e_asr_tpu_torch.config import BeamConfig
 from e2e_asr_tpu_torch.core import checkpoint
-from e2e_asr_tpu_torch.kernels import dec_train, dec_train_gru, gru_seq
-from e2e_asr_tpu_torch.models import seq2seq
+from e2e_asr_tpu_torch.eval import beam
+from e2e_asr_tpu_torch.kernels import (beam_mega, dec_step, dec_train,
+                                       dec_train_gru, gru_seq)
+from e2e_asr_tpu_torch.models import attn_decoder, seq2seq
 from e2e_asr_tpu_torch.train import step
+from test_torch_cuda_beam_mega import _agree, _setup
 
 torch.set_num_threads(1)
 
@@ -231,3 +239,77 @@ def test_gru_asr_step_on_the_card_matches_the_cpu(cuda):
         big = np.abs(w) > max(1e-2 * scale, 1e-6)
         np.testing.assert_allclose(p_g[name][big], p_c[name][big], atol=1e-6,
                                    rtol=0, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,layers,lm_hidden", [(32, 1, 256), (5, 2, 48)])
+def test_cells_fused_gru(cuda, N, layers, lm_hidden):
+    """#11's GRU branch: N = 32 rows at the flagship widths, and 5 rows of
+    two layers with SimpleProjection."""
+    H = 256 if N == 32 else 32
+    cfg = DecoderConfig(hidden_size_dec=H, emb_size=H, vocab_size=40,
+                        attention_vec_size=H // 2, lm_hidden_size=lm_hidden,
+                        num_layers_dec=layers, use_lstm=False)
+    params = attn_decoder.init(torch.Generator().manual_seed(N), cfg, 2 * H,
+                               device=cuda)
+    assert ("simple_proj" in params) == (lm_hidden != H)
+    rng = np.random.default_rng(N)
+    args = (params, _rand(rng, N, H, device=cuda),
+            _rand(rng, N, 2 * H, scale=0.3, device=cuda),
+            _rand(rng, N, lm_hidden, scale=0.5, device=cuda),
+            tuple(_rand(rng, N, H, scale=0.5, device=cuda)
+                  for _ in range(layers)))
+    counts = dec_step.CELLS_LAUNCHES, dec_step.CELLS_GRU_LAUNCHES
+    lm, dec, y = dec_step.cells_fused(*args, use_lstm=False)
+    torch.cuda.synchronize()
+    assert (dec_step.CELLS_LAUNCHES, dec_step.CELLS_GRU_LAUNCHES) == (
+        counts[0], counts[1] + 1)
+    want_lm, want_dec, want_y = dec_step.cells_fused_reference(
+        *args, use_lstm=False)
+    for g, w in zip((lm, *dec, y), (want_lm, *want_dec, want_y)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,lens,opts", [
+    (1, 4, [9], {}), (2, 3, [9, 5], dict(num_layers_dec=2,
+                                         lm_hidden_size=24)),
+    (2, 4, [9, 5], dict(eos_rig=True))])
+def test_beam_mega_gru(cuda, B, k, lens, opts):
+    """#15's GRU branch against its plain version: one launch a search."""
+    cfg, params, args = _setup(cuda, B=B, T=9, H_enc=16, lens=lens,
+                               use_lstm=False, **opts)
+    bc = BeamConfig(beam_size=k, max_steps=16)
+    counts = beam_mega.LAUNCHES, beam_mega.GRU_LAUNCHES
+    got = beam_mega.beam_decode_mega(params, cfg, bc, *args, trace=True)
+    torch.cuda.synchronize()
+    assert (beam_mega.LAUNCHES, beam_mega.GRU_LAUNCHES) == (counts[0],
+                                                            counts[1] + 1)
+    _agree(got, beam_mega.beam_decode_mega_reference(params, cfg, bc, *args,
+                                                     trace=True))
+    if opts.get("eos_rig"):
+        assert got[1].tolist() == [1] * B
+
+
+@pytest.mark.cuda
+def test_gru_decode_on_the_card_matches_the_cpu(cuda):
+    """Greedy (#11 GRU, the attention, #12) and per-step beam (#11 GRU,
+    #12, #14) decodes of a GRU decoder: the card's ids equal the CPU's."""
+    cfg, params, args = _setup(cuda, B=3, T=9, H_enc=16, lens=[9, 6, 3],
+                               use_lstm=False)
+    enc, lens = args[0], torch.tensor([9, 6, 3], device=cuda)
+    cpu = checkpoint.to_device(params, "cpu")
+    go = torch.ones(3, dtype=torch.long)
+    bc = BeamConfig(beam_size=3, max_steps=12)
+    before = dec_step.CELLS_GRU_LAUNCHES
+    greedy = attn_decoder.apply_infer_early(params, cfg, go.to(cuda), enc,
+                                            lens, max_output=12)
+    steps = beam.beam_decode_steps(params, cfg, bc, enc, lens)
+    torch.cuda.synchronize()
+    assert dec_step.CELLS_GRU_LAUNCHES > before
+    torch.testing.assert_close(greedy.cpu(), attn_decoder.apply_infer_early(
+        cpu, cfg, go, enc.cpu(), lens.cpu(), max_output=12))
+    want = beam.beam_decode_steps(cpu, cfg, bc, enc.cpu(), lens.cpu())
+    for g, w in zip(steps[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w)
+    torch.testing.assert_close(steps[2].cpu(), want[2], atol=1e-4, rtol=0)

@@ -7,8 +7,10 @@ apply_train on its fused path, the TPU kernel
 (ops/dec_train_gru_pallas.apply_train_fused) in interpret mode with its
 custom VJP's Pallas backward: logits and gradients, with scheduled
 sampling (0.5) and dropout (keep 0.7) on and JAX's own noise handed to
-the port; the envelope of #10 and the GRU decode raise. (The whole
-model's scan against JAX's XLA scan is test_torch_gru_train_step.py's.)
+the port; the envelope of #10, and the greedy decode of the same GRU
+decoder (kernel #11's GRU branch) against the decoder's own step. (The
+whole model's scan against JAX's XLA scan is test_torch_gru_train_step.py's;
+GRU decoding against JAX is test_torch_gru_decode.py's.)
 
 Tolerances (float32, sums in other orders): forward values 1e-5 absolute;
 gradients 1e-4 relative to each leaf's largest value.
@@ -115,8 +117,11 @@ def test_training_pass_matches_the_pallas_kernel(decoder_case, form):
 
 def test_envelope_and_gru_decode_raise(decoder_case):
     """#10 takes one decoder layer without SimpleProjection (the plain scan
-    takes the rest); decoding a GRU decoder raises, naming its ROADMAP
-    item."""
+    takes the rest). A GRU decoder decodes: the greedy decode (kernel B's
+    GRU branch, the attention and kernel C, their plain versions here)
+    gives the argmax ids of the decoder's own step, <pad> after <eos>.
+    (Decoding GRU decoders raised before kernel #11's GRU branch was
+    ported; the test keeps its name.)"""
     cfg, named, enc, enc_lens, ids, _, _, _ = decoder_case
     dcfg = cfg.decoders["char"]
     params = checkpoint.params_from_named(named, cfg, "cpu")["decoder_char"]
@@ -134,6 +139,17 @@ def test_envelope_and_gru_decode_raise(decoder_case):
     out = attn_decoder.apply_train(p2, deep, torch.tensor(ids), e, lens,
                                    gen=torch.Generator().manual_seed(2))
     assert out.shape == (L - 1, B, V) and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="GRU decode"):
-        attn_decoder.apply_infer_early(params, dcfg, torch.ones(B).long(), e,
-                                       lens, max_output=4)
+    out = params["output_proj"]
+    out["bias"] = out["bias"] + 0.8 * (torch.arange(V) == 2)  # one finishes
+    go = torch.ones(B).long()
+    got = attn_decoder.apply_infer_early(params, dcfg, go, e, lens,
+                                         max_output=6)
+    ctx = attn_decoder.make_attn_context(params, e, lens)
+    state, x = attn_decoder.zero_state(dcfg, B, ctx), params["embedding"][go]
+    done = torch.zeros(B, dtype=torch.bool)
+    for t in range(got.shape[0]):
+        state, logits = attn_decoder.step(params, dcfg, ctx, state, x)
+        ids = torch.where(done, 0, logits.argmax(-1))
+        assert torch.equal(got[t], ids), t
+        done, x = done | (ids == 2), params["embedding"][ids]
+    assert bool(done.any()) and not bool(done.all()) and got.shape[1] == B

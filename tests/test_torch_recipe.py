@@ -209,7 +209,8 @@ def test_trainer_trains_evaluates_saves_and_resumes(corpus, capsys):
     named, meta = checkpoint.restore_latest(train_dir)
     assert int(named["global_step"]) == 4 and "best" in meta
     assert sorted(os.listdir(train_dir)) == [
-        "asr.ckpt-2.npz", "asr.ckpt-4.npz", "asr_err.txt", "checkpoint"]
+        "asr.ckpt-2.npz", "asr.ckpt-4.npz", "asr_err.txt", "checkpoint",
+        "summary"]
     for kind in ("gold", "raw", "decoded"):
         assert os.path.isfile(os.path.join(cfg.train.best_model_dir,
                                            f"{kind}_asr.txt"))

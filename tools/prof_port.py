@@ -31,7 +31,12 @@ chip_smoke.py's):
    elementwise work, the optimizer) summed as "other"; the same for one
    asr_step of the char + phone model (phone decoder on encoder layer 3),
    for one lm_step at B=128, T=120 (chip_smoke.lm_batch), and for one
-   asr_step of the GRU family's char + phone model (`-gru`).
+   asr_step of the GRU family's char + phone model (`-gru`);
+4. the GRU decode of the `-gru` flagship (random weights from seed 0) on
+   the encoder output of 512-frame utterances: one beam search (beam 4,
+   120 steps) of a batch of 8 by the per-step route (#11's GRU branch, the
+   attention, #12, #14) and one of a single utterance by #15's GRU
+   branch: the same wall, device busy share and per-kernel split.
 
 Traces are written under build/e2e_asr_tpu_torch/prof/. Prints one line per
 measurement, the card's name and power limit first, and the JSON of all
@@ -273,7 +278,9 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "dw_partial_kernel", "dw_sum_kernel", "dec_train_fwd_kernel",
                "dec_train_bwd_kernel", "lstm_seq_fwd_kernel",
                "dec_train_gru_fwd_kernel", "dec_train_gru_bwd_kernel",
-               "gru_fwd_kernel", "gru_bwd_chain_kernel")
+               "gru_fwd_kernel", "gru_bwd_chain_kernel", "cells_fused_kernel",
+               "output_fused_kernel", "beam_select_kernel",
+               "beam_mega_kernel", "attn_output_kernel")
 
 
 def profile_step(label: str, run, frames: int) -> dict:
@@ -303,6 +310,31 @@ def profile_step(label: str, run, frames: int) -> dict:
         print(f"  {k}: {v['device_ms']:.3f} ms device, {v['launches']} "
               "launches", flush=True)
     return row
+
+
+def profile_gru_decode(dev) -> dict:
+    """The `-gru` flagship's beam search (beam 4, 120 steps) on the
+    encoder output of 512-frame utterances: a batch of 8 by the per-step
+    route and one utterance by kernel #15."""
+    cfg = chip_smoke.flagship_cfg(cells="gru")
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(4)
+    feats = torch.tensor(rng.normal(size=(8, 512, cfg.feat_length)).astype(
+        np.float32), device=dev)
+    states, _, lens = seq2seq.encode(params, cfg, feats, torch.full(
+        (8,), 512, device=dev))
+    depth = cfg.num_layers["char"]
+    enc, enc_lens = states[depth], lens[depth]
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    bc = BeamConfig(beam_size=4, max_steps=120)
+    return {
+        "gru_decode_steps_b8": profile_step(
+            "gru_decode_steps_b8 (per-step route, beam 4)",
+            lambda: beam.beam_decode_steps(dec, dcfg, bc, enc, enc_lens), 0),
+        "gru_decode_mega_b1": profile_step(
+            "gru_decode_mega_b1 (#15, beam 4)",
+            lambda: beam.beam_decode(dec, dcfg, bc, enc[:1], enc_lens[:1]),
+            0)}
 
 
 def profile_train(cfg, dev, name: str | None = None) -> dict:
@@ -363,7 +395,8 @@ def main() -> int:
                               device=dev)
         result = {"card": card, **profile_kernels(params, cfg, dev),
                   **profile_decode(params, cfg, dev),
-                  **profile_one_utterance(params, cfg, dev)}
+                  **profile_one_utterance(params, cfg, dev),
+                  **profile_gru_decode(dev)}
     result.update(profile_train(cfg, dev))
     result.update(profile_train(chip_smoke.flagship_cfg(
         40, chip_smoke.PHONE_VOCAB), dev))
