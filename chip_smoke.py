@@ -44,6 +44,13 @@ Phases; any failure exits nonzero and prints no result line:
      flagship's encoder output as #15's cases above (B=1 k=4, B=2 k=4
      unequal, B=1 k=16, B=2 k=1, <eos>-rigged), beside the per-step
      route;
+   - kernel #17, the transducer's lattice loss, forward and backward, at
+     the bench's transducer lattice (B=128, T'=48, U=47, ragged lengths;
+     the lattices of a random joint's log-softmax): the loss within 1e-5
+     relative of the plain version's, both gradients within 1e-5
+     absolute (on the same alpha and loss, at the step's g = 1/B), and
+     at g = 1 both float32 chains' error against the plain version in
+     float64; library none;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -101,14 +108,28 @@ Phases; any failure exits nonzero and prints no result line:
    restored, a greedy and a per-step beam decode (beam 4) of 64 utterances
    by the flagship and by the `-gru` flagship launch #13 and not C, and
    equal the same decodes without it up to near-ties (< 1e-3); both
-   routes' times side by side.
+   routes' times side by side;
+11. the transducer family (`-model_family transducer`): the flagship
+   encoder under a 1-layer LSTM prediction network (emb 256, hidden 256)
+   and a 256-wide joint, V=40 (transducer_cfg): (a) one asr_step at B=16
+   on the card and on the CPU must agree (loss, gradients, params after;
+   phase 5's tolerances), three steps at B=128, T=384, L=48 with every
+   loss finite and #17 both ways, A and its backward, #3 and #5
+   launched, their step time and frames/s, and one step's device split
+   (tools/prof_port.py); (b) the Trainer on phase 6's corpus without the
+   LM task (train, greedy dev WER, save, exact resume); (c) `cli.main
+   -model_family transducer`: train, `-dev` greedy and at beam 4, `-test
+   -beam_size 4`; (d) phase 4's serving burst (beam 4), and one batch of
+   8 decoded on the card and on the CPU, greedily and at beam 4, with
+   identical token rows. No decode launches an attention-decoder kernel;
+   serving computes no loss, so it launches A and not #17.
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
-entry-point run, the GRU runs, the #13 runs) counts its kernels' launches
-from zero; a row's `launches` in the kernels line is their sum over those
-runs. The line before the last is a JSON object with the per-kernel
-numbers; the last line is {"ok": true, "device": {...}}. float32
-throughout, TF32 off. No phase runs at a cut depth: the run took 87 s on
-the card before the GRU decode and #13 joined it.
+entry-point run, the GRU runs, the #13 runs, the transducer runs) counts
+its kernels' launches from zero; a row's `launches` in the kernels line is
+their sum over those runs. The line before the last is a JSON object with
+the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
+float32 throughout, TF32 off. No phase runs at a cut depth: the whole run
+took 96 s on the card with the transducer's phase, the build included.
 """
 from __future__ import annotations
 
@@ -134,13 +155,15 @@ from e2e_asr_tpu_torch.cli import main as cli
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
 from e2e_asr_tpu_torch.data.speech import SpeechDataset
-from e2e_asr_tpu_torch.eval import beam, beam_eval
+from e2e_asr_tpu_torch.eval import beam, beam_eval, transducer_beam
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
 from e2e_asr_tpu_torch.kernels import (attn_output, beam_mega, beam_select,
                                        build, dec_step, dec_train,
                                        dec_train_gru, gru_seq, lstm_bidir,
                                        lstm_seq)
-from e2e_asr_tpu_torch.models import attn_decoder, encoder, seq2seq
+from e2e_asr_tpu_torch.kernels import transducer as rnnt_kernel
+from e2e_asr_tpu_torch.models import (attn_decoder, encoder, seq2seq,
+                                      transducer)
 from e2e_asr_tpu_torch.tools import beam_grid
 from e2e_asr_tpu_torch.train import step
 from e2e_asr_tpu_torch.train.loop import Trainer
@@ -157,7 +180,8 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "gru_bidir_train": 1e-4, "gru_bidir_bwd": 1e-4, "gru_bwd": 1e-4,
        "dec_train_gru_fwd": 1e-4, "dec_train_gru_bwd": 1e-4,
        "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4,
-       "cells_fused_gru": 1e-4, "attn_output_fused": 1e-4}
+       "cells_fused_gru": 1e-4, "attn_output_fused": 1e-4,
+       "transducer_fwd": 1e-5, "transducer_bwd": 1e-5}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
             "dec_train_gru_bwd_phone"}
@@ -171,6 +195,11 @@ MEGA_T, MEGA_S = 64, 120  # encoder frames of a 512-frame bucket; max_steps
 # hypotheses: sums of up to 120 float32 log-probs, 1e-5 of |score| (at
 # least 1e-4).
 MEGA_SCORE_TOL = 1e-5
+# Kernel #17's lattice at the bench's transducer shape
+# (bench.py:_measure_transducer): T' = 384 / 8 encoder frames, U = L - 1
+# labels. Its forward is held per example to 1e-5 of the plain version's
+# loss (relative), its backward to 1e-5 absolute on both gradients.
+RNNT_B, RNNT_T, RNNT_U = TRAIN_B, TRAIN_T // 8, TRAIN_L - 1
 
 
 def fail(msg: str):
@@ -236,6 +265,16 @@ def flagship_cfg(char_vocab: int = 40, phone_vocab: int | None = None,
         encoder=EncoderConfig(hidden_size=256, skip_step=2,
                               max_scaling_down=8, use_lstm=cells == "lstm"),
         decoders=decoders, avg=True, feat_length=80)
+
+
+def transducer_cfg(char_vocab: int = 40):
+    """The flagship encoder under the transducer family's prediction
+    network (one LSTM layer, emb 256, hidden 256) and joint (256 wide):
+    `-model_family transducer` at the flagship widths."""
+    base = flagship_cfg(char_vocab)
+    dec = dataclasses.replace(base.decoders["char"], joint_dim=256)
+    return dataclasses.replace(base, model_family="transducer",
+                               decoders={"char": dec})
 
 
 class Recorder:
@@ -1202,7 +1241,9 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "dec_train_gru_bwd_phone": (dec_train_gru, "BWD_LAUNCHES"),
             "cells_fused_gru": (dec_step, "CELLS_GRU_LAUNCHES"),
             "beam_mega_gru": (beam_mega, "GRU_LAUNCHES"),
-            "attn_output_fused": (attn_output, "LAUNCHES")}
+            "attn_output_fused": (attn_output, "LAUNCHES"),
+            "transducer_fwd": (rnnt_kernel, "FWD_LAUNCHES"),
+            "transducer_bwd": (rnnt_kernel, "BWD_LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1225,6 +1266,15 @@ MIX_RECIPE_PATH = (GRU_TRAIN_PATH[:2] + TRAIN_PATH[2:] + LM_PATH
 GRU_SERVING_PATH = ("gru_bidir", "cells_fused_gru") + SERVING_PATH[2:]
 GRU_RECIPE_PATH = GRU_TRAIN_PATH + ("gru_bidir", "cells_fused_gru",
                                     "output_fused")
+# The transducer step: the encoder's A and its backward, the prediction
+# network's #3 (training form) and #5, and #17 both ways; its decodes run
+# the encoder's A (inference form) and no attention-decoder kernel.
+TRANSDUCER_PATH = ("lstm_bidir_train", "lstm_bidir_bwd", "lstm_seq_train",
+                   "lstm_bwd", "transducer_fwd", "transducer_bwd")
+TRANSDUCER_RECIPE_PATH = TRANSDUCER_PATH + ("lstm_bidir",)
+ATTENTION_DECODE = ("cells_fused", "cells_fused_gru", "output_fused",
+                    "beam_select", "beam_mega", "beam_mega_gru",
+                    "attn_output_fused")
 
 
 def decode_rows(gru_decoder: bool) -> tuple[str, str]:
@@ -1274,23 +1324,29 @@ def train_batch(rng, B: int, cfg) -> dict:
 
 def compare_train_step(cfg, dev, lm_cfg) -> None:
     """Phase 5a: one asr_step at B=16 on the card and on the CPU, same
-    params, batch and noise; teacher forcing (no sampled token can part)."""
-    cfg = dataclasses.replace(cfg, decoders={
-        t: dataclasses.replace(d, samp_prob=0.0)
-        for t, d in cfg.decoders.items()})
+    params, batch and noise; teacher forcing (no sampled token can part).
+    A transducer config's noise is the encoder's and the prediction
+    network's dropout."""
+    if cfg.model_family == "attention":
+        cfg = dataclasses.replace(cfg, decoders={
+            t: dataclasses.replace(d, samp_prob=0.0)
+            for t, d in cfg.decoders.items()})
     B = 16
     batch = train_batch(np.random.default_rng(5), B, cfg)
     gen = torch.Generator().manual_seed(5)
-    params = seq2seq.init(gen, cfg, device="cpu")
+    params = step.init_params(gen, cfg, device="cpu")
     masks, t = {}, TRAIN_T
     for i, reduce in enumerate(encoder.layer_plan(cfg.encoder, 4)):
         masks[i + 1] = dropout_mask(gen, (t, B, 2 * cfg.encoder.hidden_size),
                                     cfg.encoder.out_prob, "cpu")
         t = -(-t // cfg.encoder.skip_step) if reduce else t
     noise = {"encoder": masks}
-    for task, dcfg in cfg.decoders.items():
-        noise[task] = attn_decoder.train_noise(gen, dcfg, TRAIN_L - 1, B,
-                                               "cpu")
+    if cfg.model_family == "transducer":
+        noise["pred"] = transducer.train_noise(gen, cfg, TRAIN_L, B, "cpu")
+    else:
+        for task, dcfg in cfg.decoders.items():
+            noise[task] = attn_decoder.train_noise(gen, dcfg, TRAIN_L - 1,
+                                                   B, "cpu")
     runs = []
     for where in ("cpu", dev):
         asr_step, _ = step.make_train_step(cfg, lm_cfg, device=where)
@@ -1338,7 +1394,8 @@ def train(cfg, dev, card: str, path=None, label: str = "training") -> dict:
     the launches of the training kernels in (b) alone."""
     lm_cfg = LMConfig(vocab_size=cfg.decoders["char"].vocab_size)
     compare_train_step(cfg, dev, lm_cfg)
-    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
     asr_step, _ = step.make_train_step(cfg, lm_cfg, device=dev)
     state = step.create_state(params, cfg, lm_cfg, device=dev)
     batch = train_batch(np.random.default_rng(6), TRAIN_B, cfg)
@@ -1472,8 +1529,9 @@ def train_lm_multitask(dev, card) -> dict:
 def recipe(dev, card, cells: str = "lstm") -> dict:
     """Phase 6: train a synthetic corpus at the flagship shape with the
     port's Trainer, evaluate, save, and resume in a second Trainer
-    (`cells` as flagship_cfg's; "gru" trains without the LM task, which a
-    GRU char decoder does not have). With GRU cells, then also evaluate
+    (`cells` as flagship_cfg's, or "transducer", transducer_cfg's; "gru"
+    and "transducer" train without the LM task, which a GRU char decoder
+    and the transducer do not have). With GRU cells, then also evaluate
     the trained model on the dev set through BeamEvaluator (beam 4) at a
     batch of 1 (one #15 launch per utterance) and, with GRU decoders, at a
     batch of 64 (the per-step route). Returns the launches of each run."""
@@ -1500,10 +1558,11 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             vocab_dir=os.path.join(root, "vocab"),
             train_dir=os.path.join(root, "train"),
             best_model_dir=os.path.join(root, "best"),
-            lm_prob=0.0 if cells == "gru" else 0.5,
+            lm_prob=0.0 if cells in ("gru", "transducer") else 0.5,
             steps_per_checkpoint=3, compute_dtype="float32")
         cfg = ExperimentConfig(
-            model=flagship_cfg(sizes["char"], sizes["phone"], cells),
+            model=(transducer_cfg(sizes["char"]) if cells == "transducer"
+                   else flagship_cfg(sizes["char"], sizes["phone"], cells)),
             train=train_cfg, lm=LMConfig(vocab_size=sizes["char"]))
         name = "recipe" if cells == "lstm" else f"recipe {cells}"
         trainer = Trainer(cfg, device=dev)
@@ -1525,7 +1584,11 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
         wall = time.monotonic() - t0
         runs = {name: read_launches(name, {
             "lstm": RECIPE_PATH, "gru_encoder": MIX_RECIPE_PATH,
-            "gru": GRU_RECIPE_PATH}[cells])}
+            "gru": GRU_RECIPE_PATH, "transducer": TRANSDUCER_RECIPE_PATH}[
+                cells])}
+        if cells == "transducer" and any(runs[name][k]
+                                         for k in ATTENTION_DECODE):
+            fail(f"{name} launched an attention-decoder kernel")
         asr = [float(x) for x in losses["asr"]]
         lm = [float(x) for x in losses["lm"]]
         with open(os.path.join(train_cfg.train_dir, "asr_err.txt")) as f:
@@ -1536,7 +1599,7 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
               f"{[round(x, 4) for x in asr]}; LM losses "
               f"{[round(x, 4) for x in lm]}; dev WER {errs}; wall "
               f"{wall:.1f} s", flush=True)
-        if not (asr and (lm or cells == "gru")
+        if not (asr and (lm or cells in ("gru", "transducer"))
                 and np.isfinite(asr + lm).all()):
             fail(f"{name} losses: ASR {asr}, LM {lm}")
         found = checkpoint.restore_latest(train_cfg.train_dir)
@@ -1901,7 +1964,197 @@ def fused_attention_route(dev, card) -> dict:
     return runs
 
 
+def transducer_lattice(dev, rng, B: int, T: int, U: int, V: int = 40):
+    """The two log-prob lattices of a random joint (log-softmax over V of
+    normal logits; labels in 3..V-1) with ragged lengths (t_len in
+    [T/2, T], u_len in [U/2, U], the first row full), int32 lengths."""
+    lp = torch.log_softmax(torch.tensor(rng.normal(size=(B, T, U + 1, V)),
+                                        dtype=torch.float32, device=dev), -1)
+    labels = torch.tensor(rng.integers(3, V, size=(B, U)), device=dev)
+    blank = lp[..., 0].contiguous()
+    label = torch.gather(lp[:, :, :U], -1, labels[:, None, :, None].expand(
+        B, T, U, 1))[..., 0].contiguous()
+    tl = rng.integers(T // 2, T + 1, size=B).astype(np.int32)
+    ul = rng.integers(U // 2, U + 1, size=B).astype(np.int32)
+    tl[0], ul[0] = T, U
+    return [blank, label, torch.tensor(tl, device=dev),
+            torch.tensor(ul, device=dev)]
+
+
+def check_transducer_kernels(dev, record: Recorder) -> None:
+    """Phase 3, kernel #17 at the bench's transducer lattice (B=128,
+    T'=48, U=47, ragged): the forward's loss against the plain forward's
+    (1e-5 relative, per example), the backward's gradients against the
+    plain backward's on the same alpha and loss and the step's g = 1/B,
+    the mean's gradient (1e-5 absolute). Beside them, at g = 1, the error
+    against the plain versions in float64 of the kernels' chain (the
+    backward on the forward kernel's alpha and loss) and of the plain
+    float32 chain: float32's own rounding of the log-space sums, which
+    reach 230 here.
+    Bound: the bytes of this data's lattices (the cells t < t_len,
+    u <= u_len of each input read, each output written) at 3.35 TB/s;
+    the arithmetic (about 8 operations a cell forward, 20 backward) is far
+    below it. No PyTorch call computes this loss from the two lattices:
+    library none."""
+    args = transducer_lattice(dev, np.random.default_rng(17), RNNT_B,
+                              RNNT_T, RNNT_U)
+    blank, label, tl, ul = args
+    cells = int((tl.long() * (ul.long() + 1)).sum())
+    src = "e2e_asr_tpu_torch/csrc/transducer.cu"
+    loss, _ = rnnt_kernel.transducer_fwd(*args)
+    want, alpha = rnnt_kernel.transducer_fwd_reference(*args)
+    abs_err = float((loss - want).abs().max())
+    rel_err = float(((loss - want).abs() / want.abs()).max())
+    if not rel_err <= TOL["transducer_fwd"]:
+        fail(f"transducer_fwd disagrees with its plain version: relative "
+             f"{rel_err} (absolute {abs_err})")
+    lens = nbytes(tl, ul)
+    record.add(
+        "transducer_fwd", src, "e2e_asr_tpu/ops/transducer_pallas.py:154 "
+        "(_fwd_call :139, body _fwd_kernel :101)", abs_err,
+        f"max_rel_err={rel_err:.3e} tolerance={TOL['transducer_fwd']:.0e} "
+        f"(relative, per example) B={RNNT_B} T={RNNT_T} U={RNNT_U} "
+        f"cells={cells}",
+        time_ms(lambda: rnnt_kernel.transducer_fwd(*args), 50),
+        time_ms(lambda: rnnt_kernel.transducer_fwd_reference(*args), 3,
+                warmup=1),
+        (8 * cells, 3 * 4 * cells + lens + nbytes(loss)), None)
+    ones = torch.ones(RNNT_B, device=dev)
+    f64 = [arg.double() for arg in args[:2]] + args[2:]
+    loss64, alpha64 = rnnt_kernel.transducer_fwd_reference(*f64)
+    exact = rnnt_kernel.transducer_bwd_reference(*f64, alpha64, loss64,
+                                                 ones.double())
+    loss_k, alpha_k = rnnt_kernel.transducer_fwd(*args)
+    chains = {"kernel": rnnt_kernel.transducer_bwd(*args, alpha_k, loss_k,
+                                                   ones),
+              "plain": rnnt_kernel.transducer_bwd_reference(
+                  *args, alpha, want, ones)}
+    f64_err = {k: max(float((x.double() - e).abs().max())
+                      for x, e in zip(v, exact)) for k, v in chains.items()}
+    print(f"transducer_bwd at g=1 against float64: kernels' chain "
+          f"{f64_err['kernel']:.3e}, plain float32 chain "
+          f"{f64_err['plain']:.3e}", flush=True)
+    g = torch.full((RNNT_B,), 1.0 / RNNT_B, device=dev)
+    record("transducer_bwd", src, "e2e_asr_tpu/ops/transducer_pallas.py:211 "
+           "(_bwd_call :202, body _bwd_kernel :172)",
+           rnnt_kernel.transducer_bwd(*args, alpha, want, g),
+           rnnt_kernel.transducer_bwd_reference(*args, alpha, want, g),
+           lambda: rnnt_kernel.transducer_bwd(*args, alpha, want, g),
+           lambda: rnnt_kernel.transducer_bwd_reference(*args, alpha, want,
+                                                        g),
+           50, 3, (20 * cells, 3 * 4 * cells + lens + nbytes(want, g, blank,
+                                                               label)),
+           grad_err_vs_f64=f64_err["kernel"],
+           plain_grad_err_vs_f64=f64_err["plain"])
+
+
+def serve_transducer(dev, card, rev_vocab) -> dict:
+    """Phase 11e: the flagship transducer (random weights from seed 0)
+    serves phase 4's 24 requests (beam 4); then one batch of 8 decoded on
+    the card and on the CPU, greedily and by beam 4, must give identical
+    token rows. Returns the serving run's launches."""
+    cfg = transducer_cfg()
+    params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    with torch.no_grad():
+        zero_launches()
+        feats, texts, stats = serve(params, cfg, dev, rev_vocab)
+        launches = read_launches("serving transducer", ("lstm_bidir",))
+        if any(launches[k] for k in ATTENTION_DECODE + TRANSDUCER_PATH):
+            fail("transducer serving launched a kernel off its route")
+        print(f"serving transducer ({card}): {json.dumps(stats)}")
+        print(f"first transcripts: {[t[:60] for t in texts[:3]]}")
+        if len(texts) != 24 or not all(isinstance(t, str) for t in texts):
+            fail("not every request got a transcript")
+        reqs = feats[:8]
+        T = max(x.shape[0] for x in reqs)
+        bucket = next(b for b in (128, 256, 512) if T <= b)
+        batch = {"logmel": np.zeros((8, bucket, cfg.feat_length),
+                                    np.float32),
+                 "logmel_len": np.array([x.shape[0] for x in reqs])}
+        for i, x in enumerate(reqs):
+            batch["logmel"][i, :x.shape[0]] = x
+        cpu_params = to_device(params, "cpu")
+        for k in (1, 4):
+            decode = transducer_beam.make_decoder(cfg, BeamConfig(
+                beam_size=k))
+            t0 = time.monotonic()
+            card_run = [x.cpu() for x in decode(params, batch)]
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            cpu_run = decode(cpu_params, batch)
+            t2 = time.monotonic()
+            same = int((card_run[0] == cpu_run[0]).all(dim=1).sum())
+            score_err = float((card_run[2] - cpu_run[2]).abs().max())
+            print(f"transducer decode beam {k}, batch of 8: card vs CPU "
+                  f"{same}/8 rows identical, {int(card_run[1].sum())} "
+                  f"tokens, max score difference {score_err:.3e}; card "
+                  f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s", flush=True)
+            if same != 8:
+                fail(f"transducer beam {k}: the card's and the CPU's "
+                     "decodes differ")
+    return launches
+
+
+def transducer_entry_points(dev, card) -> dict:
+    """Phase 11d: `cli.main -model_family transducer` at the flagship
+    widths on phase 7's corpus shape (64 training, 8 dev and 8 test
+    utterances): it trains 2 steps at a batch of 32 (#17 both ways, a
+    greedy dev evaluation, a save); `-dev` greedily and at beam 4; `-test
+    -beam_size 4`. Each run counts from zero, launches no attention-decoder
+    kernel, and writes its files. Returns the launches of each run."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        vocab, data = os.path.join(root, "vocab"), os.path.join(root, "data")
+        synth.make_vocab_dir(vocab)
+        os.makedirs(data)
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        for name, n, seed in (("train_1k.0.0001", 64, 3), ("dev.0001", 8, 4),
+                              ("eval2000.0001", 8, 5)):
+            synth.write_speech_corpus(os.path.join(data, name), n, seed=seed,
+                                      **utt)
+        base = ["-data_dir", data, "-vocab_dir", vocab, "-tb_dir",
+                os.path.join(root, "models"), "-steps_per_checkpoint", "2",
+                "-max_epochs", "0", "-compute_dtype", "float32",
+                "-model_family", "transducer"]
+        cfg = cli.parse_options(base + ["-dev"])
+        best, train_dir = cfg.train.best_model_dir, cfg.train.train_dir
+        for name, argv, required, out in (
+                ("cli transducer train", ["-buck_batch_sizes", "32"],
+                 TRANSDUCER_RECIPE_PATH, None),
+                ("cli transducer -dev greedy",
+                 ["-dev", "-buck_batch_sizes", "32"], ("lstm_bidir",),
+                 "decoded_asr.txt"),
+                ("cli transducer -dev beam 4",
+                 ["-dev", "-beam_size", "4", "-buck_batch_sizes", "8"],
+                 ("lstm_bidir",), "decoded_asr.txt"),
+                ("cli transducer -test beam 4", ["-test", "-beam_size", "4"],
+                 ("lstm_bidir",), "decoded_asr.txt")):
+            zero_launches()
+            t0 = time.monotonic()
+            cli.main(base + argv)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = read_launches(name, required)
+            off = ATTENTION_DECODE + (() if out is None else TRANSDUCER_PATH)
+            if any(counts[k] for k in off):
+                fail(f"the {name} run launched a kernel off its route")
+            if out is None:
+                if not checkpoint.latest_path(train_dir):
+                    fail("cli transducer train wrote no checkpoint")
+            else:
+                with open(os.path.join(best, out)) as f:
+                    if len(f.read().splitlines()) != 8:
+                        fail(f"{name}: not 8 hypotheses")
+                os.remove(os.path.join(best, out))
+            print(f"{name} ({card}): wall {wall:.3f} s", flush=True)
+            runs[name] = counts
+    return runs
+
+
 def main() -> int:
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1950,6 +2203,8 @@ def main() -> int:
         check_attn_output(params, cfg, gru_params, gru_cfg, dev, record)
     check_mega(gru_params, gru_cfg, dev, record, "beam_mega_gru")
     del gru_params
+    with torch.no_grad():
+        check_transducer_kernels(dev, record)
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
@@ -1990,8 +2245,26 @@ def main() -> int:
 
     # 10. kernel #13 on the route (E2E_ASR_FUSED_ATTN), LSTM and GRU
     paths.update(fused_attention_route(dev, card))
+
+    # 11. the transducer family (-model_family transducer): its train step
+    # (card vs CPU at B=16, three steps at B=128), the Trainer (train,
+    # greedy dev WER, save, resume), the command line, serving
+    shapes = step.init_params(torch.Generator(), transducer_cfg(),
+                              device="meta")
+    print(f"transducer model: {seq2seq.param_count(shapes)} parameters")
+    paths["transducer"] = train(transducer_cfg(), dev, card, TRANSDUCER_PATH,
+                                "transducer training")
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import prof_port
+    prof_port.profile_train(transducer_cfg(), dev, "transducer_step")
+    paths.update(recipe(dev, card, "transducer"))
+    paths.update(transducer_entry_points(dev, card))
+    paths["serving transducer"] = serve_transducer(dev, card, rev_vocab)
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
+    print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f}"
+          " s, the build included", flush=True)
     print(json.dumps({"kernels": record.rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

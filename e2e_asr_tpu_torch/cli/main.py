@@ -8,7 +8,8 @@ bytes as the JAX command's for the same flags) and dispatches: training to
 the port's Trainer; `-dev` / `-test` evaluation to the greedy evaluator
 when beam_size is 1 and no beam feature is set, else to the beam
 evaluator (kernel #15's route at dev/test batches of 1 or 2, the per-step
-route above).
+route above); with `-model_family transducer`, to the transducer
+evaluator (greedy at beam size 1, its beam search above).
 
 Usage (the port has no bf16: pass -compute_dtype float32):
     python -m e2e_asr_tpu_torch.cli.main -compute_dtype float32 [flags]
@@ -20,8 +21,9 @@ the CPU through the kernels' plain versions.
 What the port does not honour raises NotImplementedError naming its
 ROADMAP.md item: bf16 compute, multi-host runs (-dist_coordinator), the
 TrainConfig options in train/loop.py `UNPORTED` (EMA, int8, checkpoint
-averaging, meshes, ...), the non-attention families, LoRA, biasing,
--lm_path and the beam features eval/beam.py lists.
+averaging, meshes, ...), the CTC family, LoRA, biasing, -lm_path, the
+beam features eval/beam.py lists and the transducer's n-best, lm_rescore
+and ILM subtraction.
 """
 from __future__ import annotations
 
@@ -97,8 +99,8 @@ def launch_eval(cfg: ExperimentConfig, device) -> None:
     from e2e_asr_tpu_torch.data import text
     from e2e_asr_tpu_torch.data.speech import SpeechDataset
     from e2e_asr_tpu_torch.eval.beam_eval import BeamEvaluator
-    from e2e_asr_tpu_torch.eval.greedy import GreedyEvaluator
-    from e2e_asr_tpu_torch.models import seq2seq
+    from e2e_asr_tpu_torch.eval.greedy import (GreedyEvaluator,
+                                               TransducerEvaluator)
     from e2e_asr_tpu_torch.train import step as step_lib
     from e2e_asr_tpu_torch.train.loop import Trainer
 
@@ -122,8 +124,8 @@ def launch_eval(cfg: ExperimentConfig, device) -> None:
 
     # Restore: prefer best_model_dir, else train_dir, else fresh init
     # (main.py:203-215).
-    params = seq2seq.init(torch.Generator().manual_seed(10), cfg.model,
-                          device=device)
+    params = step_lib.init_params(torch.Generator().manual_seed(10),
+                                  cfg.model, device=device)
     state = step_lib.create_state(params, cfg.model, cfg.lm, device=device)
     ckpt_path = None
     for d in (tc.best_model_dir, tc.train_dir):
@@ -138,7 +140,12 @@ def launch_eval(cfg: ExperimentConfig, device) -> None:
     _, rev_vocab = text.initialize_vocabulary(
         path.join(tc.vocab_dir, "char.vocab"))
     start = time.time()
-    if (bc.beam_size == 1 and bc.lm_weight == 0.0 and bc.ctc_rescore == 0.0
+    if cfg.model.model_family == "transducer":
+        evaluator = TransducerEvaluator(
+            cfg.model, rev_vocab, tc.best_model_dir, beam_size=bc.beam_size,
+            lm_weight=bc.lm_weight, ilm_weight=bc.ilm_weight,
+            lm_rescore=bc.lm_rescore, nbest=bc.nbest, device=device)
+    elif (bc.beam_size == 1 and bc.lm_weight == 0.0 and bc.ctc_rescore == 0.0
             and bc.joint_ctc == 0.0 and bc.ilm_weight == 0.0
             and bc.lm_rescore == 0.0 and bc.nbest <= 1):
         evaluator = GreedyEvaluator(cfg.model, rev_vocab, tc.best_model_dir,

@@ -28,7 +28,6 @@ import torch
 
 from e2e_asr_tpu_torch.config import Seq2SeqConfig
 from e2e_asr_tpu_torch.core.device import resolve
-from e2e_asr_tpu_torch.models import seq2seq
 
 SEP = "/"
 
@@ -75,9 +74,10 @@ def params_from_named(named: dict[str, np.ndarray], cfg: Seq2SeqConfig,
     Strict: a leaf the model does not have, a leaf it lacks, or a shape
     that differs raises ValueError. Leaves are copied as float32 to `device`
     (default: the CUDA card; raises without one)."""
+    from e2e_asr_tpu_torch.train.step import init_params
     device = resolve(device)
-    shapes = seq2seq.init(torch.Generator().manual_seed(0), cfg,
-                          device="meta")
+    shapes = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="meta")
     template = flatten_named(shapes)
     missing = sorted(set(template) - set(named))
     unexpected = sorted(set(named) - set(template))

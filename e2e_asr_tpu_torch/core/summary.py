@@ -11,9 +11,16 @@ Wire format (field numbers from tensorflow/core/util/event.proto):
     Event  { double wall_time=1; int64 step=2; Summary summary=5 }
     Summary{ repeated Value value=1 }
     Value  { string tag=1; float simple_value=2 }
+
+One departure from the JAX writer: a finite value beyond float32's range
+is written as +-inf, as a float32 cast gives it; the JAX writer raises
+OverflowError on it (struct.pack), so its Trainer fails at the first
+checkpoint cadence whose perplexity exceeds 3.4e38, which is a mean loss
+above 88.7 nats (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
 import struct
@@ -51,7 +58,10 @@ class SummaryWriter:
         val = bytearray()
         pb.write_len_delimited(val, 1, tag.encode())
         pb.write_varint(val, (2 << 3) | 5)            # simple_value, 32-bit
-        val += struct.pack("<f", float(value))
+        try:
+            val += struct.pack("<f", float(value))
+        except OverflowError:           # beyond float32: saturate to inf
+            val += struct.pack("<f", math.copysign(math.inf, value))
         summary = bytearray()
         pb.write_len_delimited(summary, 1, bytes(val))
         self._write_event(self._encode_event(time.time(), step, bytes(summary)))

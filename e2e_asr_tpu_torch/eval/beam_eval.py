@@ -26,7 +26,7 @@ def make_beam_decoder(cfg: Seq2SeqConfig, beam_cfg: BeamConfig, *,
     batch: {"logmel": [B, T, feat] float32, "logmel_len": [B]} as numpy
     arrays or tensors; they are moved to the device of the parameters.
     """
-    seq2seq.check_supported(cfg)
+    seq2seq.check_attention(cfg)
     dec_cfg = cfg.decoders["char"]
     check_supported(dec_cfg, beam_cfg, lm_params=lm_params, bias=bias,
                     return_nbest=nbest > 1)

@@ -1,15 +1,20 @@
-"""Greedy decoding evaluator (port of e2e_asr_tpu/eval/greedy.py,
-attention family): batched greedy decode with early exit
-(models/seq2seq.apply_greedy: the encoder on its kernels, each step on
-kernels B and C, or B and #13 where E2E_ASR_FUSED_ATTN opts in; LSTM or
-GRU decoders), detokenization, filler filtering, the edit distance, and the
-gold / raw / decoded files.
+"""Greedy decoding evaluators (port of e2e_asr_tpu/eval/greedy.py):
+batched decode, detokenization, filler filtering, the edit distance, and
+the gold / raw / decoded files.
+
+- `GreedyEvaluator`, the attention family: greedy decode with early exit
+  (models/seq2seq.apply_greedy: the encoder on its kernels, each step on
+  kernels B and C, or B and #13 where E2E_ASR_FUSED_ATTN opts in; LSTM or
+  GRU decoders);
+- `TransducerEvaluator`, the transducer family: greedy decode at beam size
+  1 (models/transducer.greedy_decode), beam search above
+  (eval/transducer_beam.py).
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-the CTC and transducer families' evaluators (the constructor raises for
-their configs) and the mesh (data-parallel decode). Params are float32:
-the port's loaders take no int8-quantized tree, and bf16 compute raises in
-the Trainer.
+the CTC family's evaluator, the mesh (data-parallel decode), and the
+transducer's n-best output, LM rescoring, LM fusion, ILM subtraction and
+biasing. Params are float32: the port's loaders take no int8-quantized
+tree, and bf16 compute raises in the Trainer.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.eval import score as score_lib
+from e2e_asr_tpu_torch.eval import transducer_beam
 from e2e_asr_tpu_torch.eval.score import WerAccumulator
-from e2e_asr_tpu_torch.models import attn_decoder, seq2seq
+from e2e_asr_tpu_torch.models import attn_decoder, seq2seq, transducer
 
 
 class GreedyEvaluator:
@@ -36,8 +42,11 @@ class GreedyEvaluator:
                  device=None):
         """Decodes on `device` (default: the CUDA card; raises without
         one)."""
-        seq2seq.check_supported(cfg)
+        seq2seq.check_attention(cfg)
         attn_decoder.check_supported(cfg.decoders["char"])
+        self._setup(cfg, rev_vocab, out_dir, file_prefix, mesh, device)
+
+    def _setup(self, cfg, rev_vocab, out_dir, file_prefix, mesh, device):
         if mesh is not None:
             raise NotImplementedError("the data-parallel decode mesh is not "
                                       "ported yet (ROADMAP.md Queue 1, "
@@ -64,9 +73,7 @@ class GreedyEvaluator:
                                         device=self.device)
                 lens = torch.as_tensor(batch["logmel_len"],
                                        device=self.device)
-                ids = seq2seq.apply_greedy(params, self.cfg, feats, lens,
-                                           task="char", go_id=text.GO_ID)
-                ids = ids.cpu().numpy()                      # [B, T_out]
+                ids = self._decode(params, feats, lens).cpu().numpy()
                 for i in range(ids.shape[0]):
                     if not batch["valid"][i]:
                         continue
@@ -91,3 +98,38 @@ class GreedyEvaluator:
         print(f"Score: {acc.score:f}")
         return acc.score
 
+    def _decode(self, params, feats, lens):
+        """Token ids [B, T_out] of a batch on the device."""
+        return seq2seq.apply_greedy(params, self.cfg, feats, lens,
+                                    task="char", go_id=text.GO_ID)
+
+
+class TransducerEvaluator(GreedyEvaluator):
+    """The same scoring and files over the transducer family: batched
+    greedy decode at beam_size 1, beam search otherwise; both return
+    emission-ordered, left-packed token ids."""
+
+    def __init__(self, cfg: Seq2SeqConfig, rev_vocab: list[str],
+                 out_dir: str, *, compute_dtype=None, beam_size: int = 1,
+                 file_prefix: str = "asr", lm_params=None,
+                 lm_weight: float = 0.0, ilm_weight: float = 0.0,
+                 lm_rescore: float = 0.0, bias=None, nbest: int = 1,
+                 mesh=None, device=None):
+        """Decodes on `device` (default: the CUDA card; raises without
+        one)."""
+        todo = "is not ported yet (ROADMAP.md Queue 1, 'Decode features')"
+        if nbest > 1:
+            raise NotImplementedError(f"transducer n-best output {todo}")
+        if lm_rescore != 0.0:
+            raise NotImplementedError(f"transducer lm_rescore {todo}")
+        transducer_beam.check_supported(
+            lm_params=lm_params, lm_weight=lm_weight, ilm_weight=ilm_weight,
+            bias=bias, compute_dtype=compute_dtype)
+        self.beam_size = beam_size
+        self._setup(cfg, rev_vocab, out_dir, file_prefix, mesh, device)
+
+    def _decode(self, params, feats, lens):
+        if self.beam_size > 1:
+            return transducer_beam.transducer_beam_search(
+                params, self.cfg, feats, lens, beam_size=self.beam_size)[0]
+        return transducer.greedy_decode(params, self.cfg, feats, lens)

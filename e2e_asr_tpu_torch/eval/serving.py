@@ -1,6 +1,9 @@
 """Dynamic-batching serving engine (port of e2e_asr_tpu/eval/serving.py,
-attention family): many concurrent transcription requests, batched onto
-one device.
+attention and transducer families): many concurrent transcription
+requests, batched onto one device. The attention family decodes by beam
+search (eval/beam_eval.make_beam_decoder); the transducer family greedily
+at beam size 1 and by its beam search above
+(eval/transducer_beam.make_decoder).
 
 - **Static shapes**: requests are grouped into fixed frame-length buckets
   and padded to a fixed batch size, so every launch of a bucket has the
@@ -30,6 +33,7 @@ import torch
 
 from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.core.device import resolve
+from e2e_asr_tpu_torch.eval import transducer_beam
 from e2e_asr_tpu_torch.eval.beam_eval import make_beam_decoder
 from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.data.text import get_relevant_words, ids_to_sentence
@@ -65,9 +69,10 @@ class BatchingTranscriber:
                  compute_dtype=None, mesh=None, lm_params=None, bias=None,
                  with_confidence: bool = False,
                  per_request_bias: float = 0.0):
-        """params: the port's parameter dict (models/seq2seq.init layout);
-        it is moved to `device` (a no-op when it is already there; default:
-        the CUDA card, and raises without one)."""
+        """params: the port's parameter dict (train/step.init_params'
+        layout of cfg's family); it is moved to `device` (a no-op when it
+        is already there; default: the CUDA card, and raises without
+        one)."""
         todo = "is not ported yet (ROADMAP.md Queue 1, '{}')"
         if mesh is not None:
             raise NotImplementedError("mesh serving " + todo.format(
@@ -91,8 +96,10 @@ class BatchingTranscriber:
         self.stats = ServingStats()
         bc = beam_cfg or BeamConfig(beam_size=4,
                                     max_steps=cfg.max_output["char"])
-        self._decode = make_beam_decoder(cfg, bc, compute_dtype=compute_dtype,
-                                         lm_params=lm_params)
+        make = (transducer_beam.make_decoder
+                if cfg.model_family == "transducer" else make_beam_decoder)
+        self._decode = make(cfg, bc, compute_dtype=compute_dtype,
+                            lm_params=lm_params)
         self._queues: dict[int, list[_Request]] = {
             b: [] for b in self.bucket_frames}
         self._cv = threading.Condition()

@@ -51,6 +51,8 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "e2e_beam_mega_scratch": [_P, _I, _P],
     "e2e_beam_mega": [_P, _I, _P, _I, ctypes.c_double, _P],
+    "e2e_transducer_fwd": [_P] * 6 + [_I, _I, _I, _P],
+    "e2e_transducer_bwd": [_P] * 9 + [_I, _I, _I, _P],
 }
 _lock = threading.Lock()
 

@@ -13,16 +13,28 @@ from e2e_asr_tpu_torch.models import attn_decoder, encoder
 
 
 def check_supported(cfg: Seq2SeqConfig) -> None:
-    if cfg.model_family != "attention":
+    """Raises for the families the port does not have: the attention and
+    transducer families pass."""
+    if cfg.model_family not in ("attention", "transducer"):
         raise NotImplementedError(
             f"the {cfg.model_family} family is not ported yet (ROADMAP.md "
-            "Queue 1, 'CTC family' / 'Transducer')")
+            "Queue 1, 'CTC family')")
+
+
+def check_attention(cfg: Seq2SeqConfig) -> None:
+    """check_supported, and raises ValueError for a family other than the
+    attention family, whose decoders this module runs (the transducer's
+    model is models/transducer.py)."""
+    check_supported(cfg)
+    if cfg.model_family != "attention":
+        raise ValueError(f"the {cfg.model_family} family has no attention "
+                         "decoder (its model is models/transducer.py)")
 
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device=None) -> dict:
     """Random parameters laid out like e2e_asr_tpu.models.seq2seq.init, on
     `device` (default: the CUDA card; raises without one)."""
-    check_supported(cfg)
+    check_attention(cfg)
     device = resolve(device)
     max_depth = max(cfg.num_layers.values())
     attn_size = cfg.encoder.hidden_size * (2 if cfg.encoder.bi_dir else 1)
@@ -81,7 +93,7 @@ def apply_train(params: dict, cfg: Seq2SeqConfig, batch: dict, *,
     The reference draws the encoder's from fold_in(rng_enc, depth) and task
     i's decoder noise from fold_in(rng_dec, i).
     """
-    check_supported(cfg)
+    check_attention(cfg)
     _check_train_supported(cfg)
     noise = noise or {}
     attn_states, _, enc_lens = encode(params, cfg, batch["logmel"],
@@ -112,7 +124,7 @@ def apply_greedy(params: dict, cfg: Seq2SeqConfig, feats: torch.Tensor,
     """Greedy decode of a batch with early exit (attn_decoder.
     apply_infer_early): token ids [B, max_output], <pad> past each row's
     <eos>. feats [B, T, feat] on the parameters' device."""
-    check_supported(cfg)
+    check_attention(cfg)
     attn_states, _, enc_lens = encode(params, cfg, feats, feat_lens)
     depth = cfg.num_layers[task]
     go_ids = torch.full((feats.shape[0],), go_id, dtype=torch.long,

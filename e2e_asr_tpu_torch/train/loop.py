@@ -24,12 +24,13 @@ randomness of the steps (dropout, scheduled sampling, the LM's dropout) is
 drawn from one torch.Generator on that device, seeded as the reference
 seeds its key; the coins and the data order use the reference's seeds.
 
-TrainConfig fields the port does not honour raise NotImplementedError,
-naming their ROADMAP.md item, when they differ from their default
-(`UNPORTED`); so do bf16 compute (set compute_dtype="float32") and the
-non-attention families. Before its first step, `train` raises ValueError
-where the LM task would run on a GRU char decoder (the JAX package has no
-GRU LM, models/rnn_lm.py). `platform` and `score_unit` are
+The attention and transducer families train (the transducer's dev WER
+through eval/greedy.TransducerEvaluator, greedy). TrainConfig fields the
+port does not honour raise NotImplementedError, naming their ROADMAP.md
+item, when they differ from their default (`UNPORTED`); so do bf16
+compute (set compute_dtype="float32") and the CTC family. Before its first
+step, `train` raises ValueError where the LM task would run on a GRU char
+decoder (the JAX package has no GRU LM, models/rnn_lm.py). `platform` and `score_unit` are
 the command line's (cli/main.py), as in the JAX package, whose Trainer
 reads neither.
 """
@@ -52,8 +53,8 @@ from e2e_asr_tpu_torch.core.summary import SummaryWriter
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.lm import LMDataset
 from e2e_asr_tpu_torch.data.speech import SpeechDataset, prefetch
-from e2e_asr_tpu_torch.eval.greedy import GreedyEvaluator
-from e2e_asr_tpu_torch.models import rnn_lm, seq2seq
+from e2e_asr_tpu_torch.eval.greedy import GreedyEvaluator, TransducerEvaluator
+from e2e_asr_tpu_torch.models import rnn_lm
 from e2e_asr_tpu_torch.train import step as step_lib
 
 # TrainConfig field -> ROADMAP.md Queue 1 item that will honour it.
@@ -191,7 +192,7 @@ class Trainer:
         os.makedirs(tc.train_dir, exist_ok=True)
         os.makedirs(tc.best_model_dir, exist_ok=True)
 
-        params = seq2seq.init(torch.Generator().manual_seed(
+        params = step_lib.init_params(torch.Generator().manual_seed(
             10 if not tc.chaos else int(time.time())), cfg,
             device=self.device)
         state = step_lib.create_state(params, cfg, self.lm_cfg,
@@ -206,8 +207,10 @@ class Trainer:
         lm_iter = None
 
         rev_vocab = self._load_rev_vocab()
-        evaluator = (GreedyEvaluator(cfg, rev_vocab, tc.best_model_dir,
-                                     device=self.device)
+        eval_cls = (TransducerEvaluator if cfg.model_family == "transducer"
+                    else GreedyEvaluator)
+        evaluator = (eval_cls(cfg, rev_vocab, tc.best_model_dir,
+                              device=self.device)
                      if dev_set is not None and rev_vocab else None)
         if lm_data is not None:
             rnn_lm.check_cell(cfg.decoders["char"].use_lstm)

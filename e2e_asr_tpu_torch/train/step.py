@@ -1,9 +1,11 @@
 """Training steps (port of e2e_asr_tpu/train/step.py): the ASR step of the
-attention family and the interleaved LM task, each Adam behind global-norm
-clipping.
+attention and transducer families and the interleaved LM task, each Adam
+behind global-norm clipping.
 
+`init_params(gen, cfg)` lays out a family's parameters.
 `asr_step(state, batch, gen, noise=None) -> (new_state, metrics)` runs the
-training forward (models/seq2seq.apply_train), its gradients by autograd
+training forward (models/seq2seq.apply_train, or models/transducer.loss on
+the CTC family's labels for the transducer), its gradients by autograd
 (on the card through the hand-written backward kernels), then clip + Adam.
 `lm_step(state, token_ids, seq_len, gen, valid=None, noise=None)` does the
 same for the weight-tied LM (models/rnn_lm.loss, kernels #3 and #5) with
@@ -35,7 +37,7 @@ from e2e_asr_tpu_torch.config import LMConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.core.checkpoint import (SEP, _fill, flatten_named,
                                                named_from_params, to_device)
 from e2e_asr_tpu_torch.core.device import resolve
-from e2e_asr_tpu_torch.models import rnn_lm, seq2seq
+from e2e_asr_tpu_torch.models import rnn_lm, seq2seq, transducer
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -98,6 +100,31 @@ class Optimizer(NamedTuple):
         return _fill(params, new_p), AdamState(
             count, _fill(params, new_mu), _fill(params, new_nu),
             state.learning_rate)
+
+
+def init_params(gen: torch.Generator, model_cfg: Seq2SeqConfig, *,
+                device=None) -> dict:
+    """Random parameters of the configured model family on `device`
+    (default: the CUDA card): the transducer's (models/transducer.init) or
+    the attention family's (models/seq2seq.init)."""
+    seq2seq.check_supported(model_cfg)
+    if model_cfg.model_family == "transducer":
+        return transducer.init(gen, model_cfg,
+                               model_cfg.decoders["char"].vocab_size,
+                               device=device)
+    return seq2seq.init(gen, model_cfg, device=device)
+
+
+def _ctc_labels(batch: dict):
+    """CTC labels from the char ids: strip <go>, zero from <eos> on
+    (char_len counts shifted targets incl. <eos>; labels exclude both
+    specials -> len - 1)."""
+    L = batch["char"].shape[1] - 1
+    lab_lens = (batch["char_len"] - 1).clamp_min(0)
+    steps = torch.arange(L, device=batch["char"].device)
+    labels = torch.where(steps[None, :] < lab_lens[:, None],
+                         batch["char"][:, 1:], 0)
+    return labels, lab_lens
 
 
 def make_optimizer(learning_rate: float, max_grad_norm: float,
@@ -272,6 +299,16 @@ def make_train_step(model_cfg: Seq2SeqConfig, lm_cfg: LMConfig,
         """(total, per-task losses, grads in the params' layout) of the
         training forward on `batch`: what asr_step hands the optimizer."""
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if model_cfg.model_family == "transducer":
+            labels, label_lens = _ctc_labels(batch)
+            tb = dict(batch, labels=labels, label_lens=label_lens)
+
+            def transducer_loss(p):
+                total = transducer.loss(p, model_cfg, tb, train=True,
+                                        gen=gen, noise=noise)
+                return total, {"transducer": total}
+
+            return grads_of(params, transducer_loss)
         return grads_of(params, lambda p: seq2seq.apply_train(
             p, model_cfg, batch, gen=gen, noise=noise))
 

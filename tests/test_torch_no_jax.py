@@ -1,7 +1,9 @@
 """The port never imports JAX nor any module of the JAX package: importing
 every module of e2e_asr_tpu_torch (its command line `cli.main`,
-`tools.beam_grid` and the GRU kernels' `kernels.gru_seq` and
-`kernels.dec_train_gru` among them), chip_smoke.py and tools/prof_port.py in a
+`tools.beam_grid`, the GRU kernels' `kernels.gru_seq` and
+`kernels.dec_train_gru`, and the transducer's `kernels.transducer`,
+`core.transducer_loss`, `models.transducer` and `eval.transducer_beam`
+among them), chip_smoke.py and tools/prof_port.py in a
 fresh interpreter leaves `jax` and every `e2e_asr_tpu` module out of
 sys.modules (the machine with the GPU has no JAX), and no file of the
 port, chip_smoke.py or tools/prof_port.py names a module of either."""
@@ -27,7 +29,11 @@ assert len(names) >= 20, names
 assert {"e2e_asr_tpu_torch.cli.main",
         "e2e_asr_tpu_torch.tools.beam_grid",
         "e2e_asr_tpu_torch.kernels.gru_seq",
-        "e2e_asr_tpu_torch.kernels.dec_train_gru"} <= set(names), names
+        "e2e_asr_tpu_torch.kernels.dec_train_gru",
+        "e2e_asr_tpu_torch.kernels.transducer",
+        "e2e_asr_tpu_torch.core.transducer_loss",
+        "e2e_asr_tpu_torch.models.transducer",
+        "e2e_asr_tpu_torch.eval.transducer_beam"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "e2e_asr_tpu"))
 print(len(names), leaked)

@@ -13,12 +13,14 @@ the coins and the data, not the losses. Its rng_impl is left empty, so it
 keeps JAX's process-wide PRNG setting as it is.
 """
 import dataclasses
+import math
 import os
 import struct
 import time
 
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from e2e_asr_tpu import config as jconfig
@@ -122,3 +124,19 @@ def test_writer_bytes_equal_the_jax_writers(tmp_path, monkeypatch):
     lr = struct.unpack("<f", struct.pack("<f", 1e-3))[0]    # as float32
     assert read_events(str(tmp_path / "port")) == [
         ("ASR Error", 7, 0.25), ("Learning rate", 2**40, lr)]
+
+
+def test_writer_saturates_values_beyond_float32(tmp_path):
+    """A perplexity beyond float32's range (a transducer's mean loss of 200
+    nats) is written as inf; the JAX writer raises on it (ROADMAP.md
+    Queue 3)."""
+    writer = SummaryWriter(str(tmp_path / "port"))
+    writer.scalar("ASR Perplexity", math.exp(200.0), 3)
+    writer.scalar("ASR Perplexity", -math.exp(200.0), 4)
+    writer.close()
+    assert read_events(str(tmp_path / "port")) == [
+        ("ASR Perplexity", 3, math.inf), ("ASR Perplexity", 4, -math.inf)]
+    jwriter = jsummary.SummaryWriter(str(tmp_path / "jax"))
+    with pytest.raises(OverflowError):
+        jwriter.scalar("ASR Perplexity", math.exp(200.0), 3)
+    jwriter.close()

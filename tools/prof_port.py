@@ -27,11 +27,18 @@ chip_smoke.py's):
 3. one asr_step of the flagship at the bench's train shape (B=128, T=384,
    L=48; after two warm-up steps): its wall, device busy share, and the
    device time and launches of each kernel in its trace, the port's own
-   kernels by name and PyTorch's (the matmuls outside the kernels, the
-   elementwise work, the optimizer) summed as "other"; the same for one
+   kernels by name and PyTorch's summed as "torch_matmul" (the matmuls
+   outside the kernels: input projections, the joint's, the weight
+   gradients), "torch_softmax" (log-softmax forward and backward) and
+   "other" (the elementwise work, the optimizer); the same for one
    asr_step of the char + phone model (phone decoder on encoder layer 3),
-   for one lm_step at B=128, T=120 (chip_smoke.lm_batch), and for one
-   asr_step of the GRU family's char + phone model (`-gru`);
+   for one lm_step at B=128, T=120 (chip_smoke.lm_batch), for one asr_step
+   of the GRU family's char + phone model (`-gru`) and for one asr_step of
+   the flagship transducer (`-model_family transducer`: the encoder's A
+   and its backward, #3 and #5 in the prediction network, the joint in
+   PyTorch, kernel #17 both ways; the backward chain kernel is split into
+   A's two-direction launches and #5's one-direction ones), and the
+   transducer's joint alone, forward and backward, at the step's shapes;
 4. the GRU decode of the `-gru` flagship (random weights from seed 0) on
    the encoder output of 512-frame utterances: one beam search (beam 4,
    120 steps) of a batch of 8 by the per-step route (#11's GRU branch, the
@@ -63,7 +70,7 @@ from e2e_asr_tpu_torch.core import cells  # noqa: E402
 from e2e_asr_tpu_torch.eval import beam, beam_eval  # noqa: E402
 from e2e_asr_tpu_torch.kernels import (beam_select, build,  # noqa: E402
                                        dec_step, lstm_bidir)
-from e2e_asr_tpu_torch.models import seq2seq  # noqa: E402
+from e2e_asr_tpu_torch.models import seq2seq, transducer  # noqa: E402
 from e2e_asr_tpu_torch.train import step  # noqa: E402
 from e2e_asr_tpu_torch.config import BeamConfig, LMConfig  # noqa: E402
 
@@ -280,7 +287,28 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "dec_train_gru_fwd_kernel", "dec_train_gru_bwd_kernel",
                "gru_fwd_kernel", "gru_bwd_chain_kernel", "cells_fused_kernel",
                "output_fused_kernel", "beam_select_kernel",
-               "beam_mega_kernel", "attn_output_kernel")
+               "beam_mega_kernel", "attn_output_kernel",
+               "transducer_fwd_kernel", "transducer_bwd_kernel")
+# PyTorch's own kernels by what they compute (the rest is "other").
+TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
+
+
+def kernel_group(event: dict) -> str:
+    """The split's key for a device event: its kernel's name, the
+    backward chain kernel by direction count (its grid's y: 2 for A's
+    backward, 1 for #5, a forward-only layer's or the prediction
+    network's)."""
+    name = event["name"]
+    own = next((k for k in OWN_KERNELS if k in name), None)
+    if own == "lstm_bwd_chain_kernel":
+        grid = event.get("args", {}).get("grid")
+        if grid:
+            dirs = "both directions" if grid[1] > 1 else "one direction"
+            return f"{own} ({dirs})"
+    if own is not None:
+        return own
+    low = name.lower()
+    return next((g for k, g in TORCH_KERNELS if k in low), "other")
 
 
 def profile_step(label: str, run, frames: int) -> dict:
@@ -296,7 +324,7 @@ def profile_step(label: str, run, frames: int) -> dict:
     events = device_events(run, 1, label.split()[0])
     split = {}
     for e in events:
-        name = next((k for k in OWN_KERNELS if k in e["name"]), "other")
+        name = kernel_group(e)
         ms, n = split.get(name, (0.0, 0))
         split[name] = (ms + e["dur"] / 1e3, n + 1)
     busy = busy_us(events) / 1e3
@@ -310,6 +338,32 @@ def profile_step(label: str, run, frames: int) -> dict:
         print(f"  {k}: {v['device_ms']:.3f} ms device, {v['launches']} "
               "launches", flush=True)
     return row
+
+
+def profile_joint(dev) -> dict:
+    """The transducer's joint alone at its step's shapes (B=128, T'=48,
+    U+1=48, joint 256, V=40): lattice_logprobs forward and the backward to
+    the encoder's and prediction network's outputs and the joint's
+    leaves, split as a step is."""
+    cfg = chip_smoke.transducer_cfg()
+    params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    B, T, U = chip_smoke.RNNT_B, chip_smoke.RNNT_T, chip_smoke.RNNT_U
+    gen = torch.Generator(device=dev).manual_seed(3)
+    enc = torch.randn(B, T, 2 * cfg.encoder.hidden_size, device=dev,
+                      generator=gen, requires_grad=True)
+    pred = torch.randn(B, U + 1, cfg.decoders["char"].hidden_size_dec,
+                       device=dev, generator=gen, requires_grad=True)
+    labels = torch.randint(3, 40, (B, U), device=dev, generator=gen)
+    leaves = [enc, pred] + [v.requires_grad_(True) for v in
+                            params["joint"]["out"].values()]
+
+    def run():
+        blank, label = transducer.lattice_logprobs(params, labels, enc, pred)
+        torch.autograd.grad(blank.sum() + label.sum(), leaves)
+
+    return {"transducer_joint": profile_step(
+        f"transducer_joint B={B} T'={T} U={U}", run, 0)}
 
 
 def profile_gru_decode(dev) -> dict:
@@ -343,7 +397,8 @@ def profile_train(cfg, dev, name: str | None = None) -> dict:
     decoder (the recipe's model; a GRU char decoder has no LM task)."""
     V = cfg.decoders["char"].vocab_size
     lm_cfg = LMConfig(vocab_size=V)
-    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
     asr_step, lm_step = step.make_train_step(cfg, lm_cfg, device=dev)
     holder = {"state": step.create_state(params, cfg, lm_cfg, device=dev)}
     batch = chip_smoke.train_batch(np.random.default_rng(6),
@@ -402,6 +457,9 @@ def main() -> int:
         40, chip_smoke.PHONE_VOCAB), dev))
     result.update(profile_train(chip_smoke.flagship_cfg(
         40, chip_smoke.PHONE_VOCAB, "gru"), dev, "gru_step"))
+    result.update(profile_train(chip_smoke.transducer_cfg(), dev,
+                                "transducer_step"))
+    result.update(profile_joint(dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
