@@ -51,6 +51,14 @@ Phases; any failure exits nonzero and prints no result line:
      absolute (on the same alpha and loss, at the step's g = 1/B), and
      at g = 1 both float32 chains' error against the plain version in
      float64; library none;
+   - kernel #16, the CTC prefix-score frame scan of one joint
+     CTC/attention beam step, on its inputs as CTCPrefixScorer gathers
+     them from random CTC logits (ragged lengths), from a fresh and a
+     mid-decode state (a slot at NEG_INF, `last` = -1 rows): B=8, k=4,
+     T=64, P=V=40 (the serving shape: the row's numbers); B=1, k=16; a
+     pre-beam P=k=4 < V; T=61. psi, rn and rb within 1e-5 of
+     max(|value|, 1), entries at NEG_INF on both sides or neither;
+     library none;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -123,13 +131,36 @@ Phases; any failure exits nonzero and prints no result line:
    8 decoded on the card and on the CPU, greedily and at beam 4, with
    identical token rows. No decode launches an attention-decoder kernel;
    serving computes no loss, so it launches A and not #17.
+12. the CTC family (`-model_family ctc`: the flagship encoder under a
+   512 -> 40 CTC head, ctc_cfg) and the hybrid CTC/attention family
+   (`-ctc_weight 0.3`: the flagship with that head on the char depth,
+   hybrid_cfg): (a) one hybrid asr_step (char + phone) at B=16 on the card
+   and on the CPU must agree (loss, gradients, params after; phase 5's
+   tolerances), then three steps at B=128, T=384, L=48, every loss finite,
+   A, its backward and #8/#9 launched, their step time and frames/s and
+   one step's device split (tools/prof_port.py); (b) the same for the CTC
+   family's step (A and its backward; the CTC loss is plain PyTorch, as
+   the JAX package leaves it to XLA), no decoder kernel; (c) both
+   families' Trainers on phase 6's corpus without the LM task (train,
+   greedy dev WER: the attention decoder for the hybrid, best path for
+   the CTC family; save, exact resume); (d) `cli.main -ctc_weight 0.3`:
+   train, `-dev -beam_size 4 -joint_ctc 0.3` at a batch of 1 and of 64
+   and `-test` likewise (joint beams: #16 every step, #15 never);
+   `cli.main -model_family ctc`: train, `-dev` greedy and at beam 4; (e)
+   the hybrid serves phase 4's burst by joint beams, and one batch of 8
+   decoded on the card and on the CPU agrees up to near-ties (< 1e-3);
+   the CTC family's burst at beam 1 and 4, and its batch of 8 on the card
+   and the CPU with identical token rows; then the device split of a
+   joint decode of 8 utterances beside the plain beam's
+   (tools/prof_port.py).
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
-entry-point run, the GRU runs, the #13 runs, the transducer runs) counts
-its kernels' launches from zero; a row's `launches` in the kernels line is
-their sum over those runs. The line before the last is a JSON object with
+entry-point run, the GRU runs, the #13 runs, the transducer runs, the CTC
+and hybrid runs) counts its kernels' launches from zero; a row's
+`launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
 the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off. No phase runs at a cut depth: the whole run
-took 96 s on the card with the transducer's phase, the build included.
+took 158-162 s on the card with the CTC families' phase, the build
+included.
 """
 from __future__ import annotations
 
@@ -155,12 +186,13 @@ from e2e_asr_tpu_torch.cli import main as cli
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.text import EOS_ID, GO_ID, START_VOCAB
 from e2e_asr_tpu_torch.data.speech import SpeechDataset
-from e2e_asr_tpu_torch.eval import beam, beam_eval, transducer_beam
+from e2e_asr_tpu_torch.eval import beam, beam_eval, ctc_beam, transducer_beam
+from e2e_asr_tpu_torch.eval.ctc_prefix import CTCPrefixScorer
 from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
 from e2e_asr_tpu_torch.kernels import (attn_output, beam_mega, beam_select,
-                                       build, dec_step, dec_train,
-                                       dec_train_gru, gru_seq, lstm_bidir,
-                                       lstm_seq)
+                                       build, ctc_prefix, dec_step,
+                                       dec_train, dec_train_gru, gru_seq,
+                                       lstm_bidir, lstm_seq)
 from e2e_asr_tpu_torch.kernels import transducer as rnnt_kernel
 from e2e_asr_tpu_torch.models import (attn_decoder, encoder, seq2seq,
                                       transducer)
@@ -181,7 +213,7 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "dec_train_gru_fwd": 1e-4, "dec_train_gru_bwd": 1e-4,
        "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4,
        "cells_fused_gru": 1e-4, "attn_output_fused": 1e-4,
-       "transducer_fwd": 1e-5, "transducer_bwd": 1e-5}
+       "transducer_fwd": 1e-5, "transducer_bwd": 1e-5, "ctc_prefix": 1e-5}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
             "dec_train_gru_bwd_phone"}
@@ -200,6 +232,16 @@ MEGA_SCORE_TOL = 1e-5
 # labels. Its forward is held per example to 1e-5 of the plain version's
 # loss (relative), its backward to 1e-5 absolute on both gradients.
 RNNT_B, RNNT_T, RNNT_U = TRAIN_B, TRAIN_T // 8, TRAIN_L - 1
+# Kernel #16's cases (B, k, T, V, pre_beam): the serving shape first (its
+# row's numbers: B=8, k=4, the 64 encoder frames of a 512-frame bucket,
+# P = V = 40), then one utterance at k=16, a pre-beam P = k = 4 < V, and
+# T=61 (no multiple of the TPU kernel's 8-frame block); each from a fresh
+# and from a mid-decode state (a slot at NEG_INF, `last` = -1 rows). Held
+# to 1e-5 of max(|value|, 1) (chains of 64 float32 lse steps reaching
+# hundreds of nats), entries below NEG_INF / 2 on both sides or neither.
+CTC_PREFIX_CASES = [(8, 4, MEGA_T, 40, None), (1, 16, MEGA_T, 40, None),
+                    (8, 4, MEGA_T, 40, 4), (8, 4, 61, 40, None)]
+JOINT_CTC = 0.3
 
 
 def fail(msg: str):
@@ -275,6 +317,20 @@ def transducer_cfg(char_vocab: int = 40):
     dec = dataclasses.replace(base.decoders["char"], joint_dim=256)
     return dataclasses.replace(base, model_family="transducer",
                                decoders={"char": dec})
+
+
+def hybrid_cfg(char_vocab: int = 40, phone_vocab: int | None = PHONE_VOCAB):
+    """The flagship with a CTC head (512 -> V) on the char depth, trained
+    with ctc_weight 0.3: `-ctc_weight 0.3` at the flagship widths (char +
+    phone by default)."""
+    return dataclasses.replace(flagship_cfg(char_vocab, phone_vocab),
+                               ctc_weight=JOINT_CTC)
+
+
+def ctc_cfg(char_vocab: int = 40):
+    """The flagship encoder under a CTC head: `-model_family ctc` at the
+    flagship widths."""
+    return dataclasses.replace(flagship_cfg(char_vocab), model_family="ctc")
 
 
 class Recorder:
@@ -1100,8 +1156,10 @@ def check_attn_output(params, cfg, gru_params, gru_cfg, dev,
            greedy_b64_unfused_ms=runs["greedy_b64"][4])
 
 
-def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
-    """Phase 4a: 24 requests through the batching engine."""
+def serve(params, cfg, dev, rev_vocab, beam_cfg=None
+          ) -> tuple[list, list, dict]:
+    """Phase 4a: 24 requests through the batching engine (beam 4, or
+    beam_cfg)."""
     rng = np.random.default_rng(2)
     lengths = rng.permutation(np.linspace(40, 512, 24).astype(int))
     feats = [rng.normal(size=(n, cfg.feat_length)).astype(np.float32)
@@ -1109,7 +1167,8 @@ def serve(params, cfg, dev, rev_vocab) -> tuple[list, list, dict]:
     sent, done = {}, {}
     t0 = time.monotonic()
     with BatchingTranscriber(params, cfg, rev_vocab, device=dev,
-                             beam_cfg=BeamConfig(beam_size=4, max_steps=120),
+                             beam_cfg=beam_cfg or BeamConfig(beam_size=4,
+                                                             max_steps=120),
                              bucket_frames=(128, 256, 512),
                              max_batch=8) as engine:
         futures = []
@@ -1191,8 +1250,9 @@ def hold_beam_runs(what: str, run_a, run_b, V: int) -> None:
           f"{float((sc_a - sc_b).abs().max()):.3e}", flush=True)
 
 
-def compare_cpu(params, cfg, feats) -> None:
-    """Phase 4b: one batch on the card vs the plain path on the CPU."""
+def serving_batch(cfg, feats) -> dict:
+    """The first 8 requests of a burst as one padded batch of their
+    bucket."""
     reqs = feats[:8]
     T = max(x.shape[0] for x in reqs)
     bucket = next(b for b in (128, 256, 512) if T <= b)
@@ -1200,8 +1260,15 @@ def compare_cpu(params, cfg, feats) -> None:
              "logmel_len": np.array([x.shape[0] for x in reqs])}
     for i, x in enumerate(reqs):
         batch["logmel"][i, :x.shape[0]] = x
-    decode = beam_eval.make_beam_decoder(cfg, BeamConfig(beam_size=4,
-                                                         max_steps=120))
+    return batch
+
+
+def compare_cpu(params, cfg, feats, beam_cfg=None) -> None:
+    """Phase 4b: one batch on the card vs the plain path on the CPU (beam
+    4, or beam_cfg)."""
+    batch = serving_batch(cfg, feats)
+    decode = beam_eval.make_beam_decoder(
+        cfg, beam_cfg or BeamConfig(beam_size=4, max_steps=120))
     runs = {}
     for name, p in (("cuda", params), ("cpu", to_device(params, "cpu"))):
         t0 = time.monotonic()
@@ -1243,7 +1310,8 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "beam_mega_gru": (beam_mega, "GRU_LAUNCHES"),
             "attn_output_fused": (attn_output, "LAUNCHES"),
             "transducer_fwd": (rnnt_kernel, "FWD_LAUNCHES"),
-            "transducer_bwd": (rnnt_kernel, "BWD_LAUNCHES")}
+            "transducer_bwd": (rnnt_kernel, "BWD_LAUNCHES"),
+            "ctc_prefix": (ctc_prefix, "LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1274,7 +1342,16 @@ TRANSDUCER_PATH = ("lstm_bidir_train", "lstm_bidir_bwd", "lstm_seq_train",
 TRANSDUCER_RECIPE_PATH = TRANSDUCER_PATH + ("lstm_bidir",)
 ATTENTION_DECODE = ("cells_fused", "cells_fused_gru", "output_fused",
                     "beam_select", "beam_mega", "beam_mega_gru",
-                    "attn_output_fused")
+                    "attn_output_fused", "ctc_prefix")
+# The CTC family's step: the encoder's A and its backward (the CTC loss is
+# plain PyTorch, as the JAX package leaves it to XLA); its decodes (best
+# path, the prefix beam search) run A and no decoder kernel. The hybrid
+# step is the attention step's (A, #8/#9, the CTC head beside them); its
+# joint beams run the per-step route with #16 and never #15.
+CTC_PATH = ("lstm_bidir_train", "lstm_bidir_bwd")
+CTC_RECIPE_PATH = CTC_PATH + ("lstm_bidir",)
+JOINT_PATH = ("lstm_bidir", "cells_fused", "output_fused", "beam_select",
+              "ctc_prefix")
 
 
 def decode_rows(gru_decoder: bool) -> tuple[str, str]:
@@ -1529,9 +1606,10 @@ def train_lm_multitask(dev, card) -> dict:
 def recipe(dev, card, cells: str = "lstm") -> dict:
     """Phase 6: train a synthetic corpus at the flagship shape with the
     port's Trainer, evaluate, save, and resume in a second Trainer
-    (`cells` as flagship_cfg's, or "transducer", transducer_cfg's; "gru"
-    and "transducer" train without the LM task, which a GRU char decoder
-    and the transducer do not have). With GRU cells, then also evaluate
+    (`cells` as flagship_cfg's, or "transducer", "ctc" or "hybrid",
+    transducer_cfg's, ctc_cfg's or hybrid_cfg's; all but "lstm" and
+    "gru_encoder" train without the LM task, which a GRU char decoder, the
+    transducer and the CTC family do not have). With GRU cells, then also evaluate
     the trained model on the dev set through BeamEvaluator (beam 4) at a
     batch of 1 (one #15 launch per utterance) and, with GRU decoders, at a
     batch of 64 (the per-step route). Returns the launches of each run."""
@@ -1558,11 +1636,15 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             vocab_dir=os.path.join(root, "vocab"),
             train_dir=os.path.join(root, "train"),
             best_model_dir=os.path.join(root, "best"),
-            lm_prob=0.0 if cells in ("gru", "transducer") else 0.5,
+            lm_prob=0.5 if cells in ("lstm", "gru_encoder") else 0.0,
             steps_per_checkpoint=3, compute_dtype="float32")
+        models = {"transducer": lambda: transducer_cfg(sizes["char"]),
+                  "ctc": lambda: ctc_cfg(sizes["char"]),
+                  "hybrid": lambda: hybrid_cfg(sizes["char"],
+                                               sizes["phone"])}
         cfg = ExperimentConfig(
-            model=(transducer_cfg(sizes["char"]) if cells == "transducer"
-                   else flagship_cfg(sizes["char"], sizes["phone"], cells)),
+            model=models.get(cells, lambda: flagship_cfg(
+                sizes["char"], sizes["phone"], cells))(),
             train=train_cfg, lm=LMConfig(vocab_size=sizes["char"]))
         name = "recipe" if cells == "lstm" else f"recipe {cells}"
         trainer = Trainer(cfg, device=dev)
@@ -1584,10 +1666,12 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
         wall = time.monotonic() - t0
         runs = {name: read_launches(name, {
             "lstm": RECIPE_PATH, "gru_encoder": MIX_RECIPE_PATH,
-            "gru": GRU_RECIPE_PATH, "transducer": TRANSDUCER_RECIPE_PATH}[
-                cells])}
-        if cells == "transducer" and any(runs[name][k]
-                                         for k in ATTENTION_DECODE):
+            "gru": GRU_RECIPE_PATH, "transducer": TRANSDUCER_RECIPE_PATH,
+            "ctc": CTC_RECIPE_PATH,
+            "hybrid": TRAIN_PATH + ("lstm_bidir", "cells_fused",
+                                    "output_fused")}[cells])}
+        if cells in ("transducer", "ctc") and any(runs[name][k]
+                                                  for k in ATTENTION_DECODE):
             fail(f"{name} launched an attention-decoder kernel")
         asr = [float(x) for x in losses["asr"]]
         lm = [float(x) for x in losses["lm"]]
@@ -1599,7 +1683,7 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
               f"{[round(x, 4) for x in asr]}; LM losses "
               f"{[round(x, 4) for x in lm]}; dev WER {errs}; wall "
               f"{wall:.1f} s", flush=True)
-        if not (asr and (lm or cells in ("gru", "transducer"))
+        if not (asr and (lm or train_cfg.lm_prob == 0.0)
                 and np.isfinite(asr + lm).all()):
             fail(f"{name} losses: ASR {asr}, LM {lm}")
         found = checkpoint.restore_latest(train_cfg.train_dir)
@@ -2153,6 +2237,232 @@ def transducer_entry_points(dev, card) -> dict:
     return runs
 
 
+def check_ctc_prefix(dev, record: Recorder) -> None:
+    """Phase 3, kernel #16 (CTC_PREFIX_CASES): each case's scan inputs as
+    CTCPrefixScorer.scan_inputs gathers them from random CTC logits
+    (ragged lengths), fresh and mid-decode; psi, rn and rb against the
+    plain version on the same CUDA tensors. Times at the serving shape.
+    Bound: its inputs read once and outputs written once at 3.35 TB/s
+    (about 29 float32 operations a chain-frame: three lse and two adds,
+    far below); no PyTorch call computes this recurrence: library none."""
+    worst = 0.0
+    for i, (B, k, T, V, pre) in enumerate(CTC_PREFIX_CASES):
+        rng = np.random.default_rng(16 + i)
+        lens = torch.tensor(rng.integers(T // 2, T + 1, size=B), device=dev)
+        lens[0] = T
+        scorer = CTCPrefixScorer(torch.tensor(
+            rng.normal(size=(B, T, V)).astype(np.float32) * 2, device=dev),
+            lens, pre_beam=pre)
+        mid = scorer.init_state(k)
+        mid["rn"] = torch.tensor(rng.normal(size=(B, k, T)).astype(
+            np.float32) * 5 - 20, device=dev)
+        mid["rn"][:, -1] = ctc_prefix.NEG_INF
+        mid["last"] = torch.tensor(rng.integers(-1, V, size=(B, k)),
+                                   dtype=torch.int32, device=dev)
+        att = torch.tensor(rng.normal(size=(B, k, V)).astype(np.float32),
+                           device=dev)
+        for state in (scorer.init_state(k), mid):
+            _, args = scorer.scan_inputs(state, att)
+            got = ctc_prefix.prefix_scan(*args)
+            want = ctc_prefix.prefix_scan_reference(*args)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("psi", "rn", "rb"), got, want):
+                neg = w < ctc_prefix.NEG_INF / 2
+                if not torch.equal(g < ctc_prefix.NEG_INF / 2, neg):
+                    fail(f"ctc_prefix {name} (case {i}): NEG_INF entries "
+                         "differ from the plain version's")
+                err = float(((g - w).abs() / w.abs().clamp_min(1.0))[~neg]
+                            .max())
+                if not err <= TOL["ctc_prefix"]:
+                    fail(f"ctc_prefix {name} (case {i}) disagrees with its "
+                         f"plain version: {err}")
+                worst = max(worst, err)
+                if i == 0 and state is mid:
+                    abs_err = float((g - w).abs()[~neg].max())
+                    serving = (args, got)
+        print(f"ctc_prefix case B={B} k={k} T={T} P="
+              f"{args[0].shape[-1]}: within {TOL['ctc_prefix']:.0e}",
+              flush=True)
+    args, got = serving
+    T, BK, P = args[0].shape
+    record.add(
+        "ctc_prefix", "e2e_asr_tpu_torch/csrc/ctc_prefix.cu",
+        "e2e_asr_tpu/ops/ctc_prefix_pallas.py:111 (prefix_scan :86, body "
+        "_kernel :51)", abs_err,
+        f"max_rel_err={worst:.3e} tolerance={TOL['ctc_prefix']:.0e} "
+        f"(relative to max(|x|, 1), every case; NEG_INF entries by the "
+        f"NEG_INF/2 threshold) T={T} BK={BK} P={P}",
+        time_ms(lambda: ctc_prefix.prefix_scan(*args), 200),
+        time_ms(lambda: ctc_prefix.prefix_scan_reference(*args), 3,
+                warmup=1),
+        (29 * T * BK * P, nbytes(*args, *got)), None)
+
+
+def ctc_entry_points(dev, card) -> dict:
+    """Phase 12d: the command line at the flagship widths on phase 7's
+    corpus shape (64 training, 8 dev and 8 test utterances). `-ctc_weight
+    0.3` trains 2 steps at a batch of 32 (A, #8/#9, a greedy dev
+    evaluation, a save), then `-dev -beam_size 4 -joint_ctc 0.3` at a
+    batch of 1 and of 64 (joint beams: #16 launched, #15 not) and `-test
+    -beam_size 4 -joint_ctc 0.3`; `-model_family ctc` trains 2 steps, then
+    `-dev` greedily and at beam 4 (no decoder kernel). Each run counts from
+    zero and writes its files. Returns the launches of each run."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        vocab, data = os.path.join(root, "vocab"), os.path.join(root, "data")
+        synth.make_vocab_dir(vocab)
+        os.makedirs(data)
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        for name, n, seed in (("train_1k.0.0001", 64, 3), ("dev.0001", 8, 4),
+                              ("eval2000.0001", 8, 5)):
+            synth.write_speech_corpus(os.path.join(data, name), n, seed=seed,
+                                      **utt)
+        common = ["-data_dir", data, "-vocab_dir", vocab, "-tb_dir",
+                  os.path.join(root, "models"), "-steps_per_checkpoint", "2",
+                  "-max_epochs", "0", "-compute_dtype", "float32",
+                  "-lm_prob", "0"]
+        joint = ["-beam_size", "4", "-joint_ctc", str(JOINT_CTC)]
+        decode_only = ("lstm_bidir_train", "lstm_bidir_bwd", "dec_train_fwd",
+                       "dec_train_bwd", "beam_mega")
+        train_path = TRAIN_PATH + ("lstm_bidir", "cells_fused",
+                                   "output_fused")
+        for family, flags, steps in (
+                ("hybrid", ["-ctc_weight", str(JOINT_CTC)], (
+                    ("train", ["-buck_batch_sizes", "32"], train_path,
+                     ("beam_mega", "ctc_prefix", "beam_select"), None),
+                    ("-dev joint beam 4 batch 1",
+                     ["-dev", *joint, "-buck_batch_sizes", "1"], JOINT_PATH,
+                     decode_only, "raw_4.txt"),
+                    ("-dev joint beam 4 batch 64",
+                     ["-dev", *joint, "-buck_batch_sizes", "64"], JOINT_PATH,
+                     decode_only, "raw_4.txt"),
+                    ("-test joint beam 4", ["-test", *joint], JOINT_PATH,
+                     decode_only, "raw_4.txt"))),
+                ("ctc", ["-model_family", "ctc"], (
+                    ("train", ["-buck_batch_sizes", "32"], CTC_RECIPE_PATH,
+                     ATTENTION_DECODE, None),
+                    ("-dev greedy", ["-dev", "-buck_batch_sizes", "32"],
+                     ("lstm_bidir",), ATTENTION_DECODE + CTC_PATH,
+                     "decoded_asr.txt"),
+                    ("-dev beam 4", ["-dev", "-beam_size", "4",
+                                     "-buck_batch_sizes", "8"],
+                     ("lstm_bidir",), ATTENTION_DECODE + CTC_PATH,
+                     "decoded_asr.txt")))):
+            base = common + flags
+            cfg = cli.parse_options(base + ["-dev"])
+            best, train_dir = cfg.train.best_model_dir, cfg.train.train_dir
+            for what, argv, required, forbidden, out in steps:
+                name = f"cli {family} {what}"
+                zero_launches()
+                t0 = time.monotonic()
+                cli.main(base + argv)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                counts = read_launches(name, required)
+                if any(counts[k] for k in forbidden):
+                    fail(f"the {name} run launched a kernel off its route")
+                if out is None:
+                    named, _ = checkpoint.restore_latest(train_dir)
+                    if "params/ctc_head/kernel" not in named:
+                        fail(f"{name} saved no CTC head")
+                else:
+                    with open(os.path.join(best, out)) as f:
+                        if len(f.read().splitlines()) != 8:
+                            fail(f"{name}: not 8 hypotheses")
+                    os.remove(os.path.join(best, out))
+                print(f"{name} ({card}): wall {wall:.3f} s, #16 launches "
+                      f"{counts['ctc_prefix']}", flush=True)
+                runs[name] = counts
+    return runs
+
+
+def serve_ctc_families(dev, card, rev_vocab) -> dict:
+    """Phase 12e: the flagship hybrid (random weights from seed 0) serves
+    phase 4's 24 requests by joint CTC/attention beams (beam 4, joint
+    0.3: #16 every step, no #15), and one batch of 8 decoded on the card
+    and on the CPU agrees up to near-ties, as phase 4's; then the CTC
+    family's burst at beam 1 (best path) and 4 (prefix beam search), and
+    its batch of 8 decoded on the card and on the CPU with identical rows.
+    Returns the launches of each burst."""
+    runs = {}
+    joint = BeamConfig(beam_size=4, max_steps=120, joint_ctc=JOINT_CTC)
+    for family, cfg, beams in (
+            ("hybrid", hybrid_cfg(40, None), (joint,)),
+            ("ctc", ctc_cfg(), (BeamConfig(beam_size=1),
+                                BeamConfig(beam_size=4)))):
+        params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                                  device=dev)
+        for bc in beams:
+            name = f"serving {family} beam {bc.beam_size}"
+            with torch.no_grad():
+                zero_launches()
+                feats, texts, stats = serve(params, cfg, dev, rev_vocab, bc)
+                launches = read_launches(name, JOINT_PATH if family ==
+                                         "hybrid" else ("lstm_bidir",))
+                off = (("beam_mega",) if family == "hybrid"
+                       else ATTENTION_DECODE)
+                if any(launches[k] for k in off):
+                    fail(f"{name} launched a kernel off its route")
+                print(f"{name} ({card}): {json.dumps(stats)}; #16 launches "
+                      f"{launches['ctc_prefix']}", flush=True)
+                if len(texts) != 24 or not all(isinstance(t, str)
+                                                for t in texts):
+                    fail("not every request got a transcript")
+                runs[name] = launches
+                if family == "hybrid":
+                    compare_cpu(params, cfg, feats, bc)
+                    continue
+                batch = serving_batch(cfg, feats)
+                decode = ctc_beam.make_decoder(cfg, bc)
+                t0 = time.monotonic()
+                card_run = [x.cpu() for x in decode(params, batch)]
+                t1 = time.monotonic()
+                cpu_run = decode(to_device(params, "cpu"), batch)
+                same = int((card_run[0] == cpu_run[0]).all(dim=1).sum())
+                print(f"ctc decode beam {bc.beam_size}, batch of 8: card vs "
+                      f"CPU {same}/8 rows identical, "
+                      f"{int(card_run[1].sum())} tokens, max score "
+                      f"difference "
+                      f"{float((card_run[2] - cpu_run[2]).abs().max()):.3e}; "
+                      f"card {t1 - t0:.3f} s, CPU {time.monotonic() - t1:.3f}"
+                      " s", flush=True)
+                if same != 8:
+                    fail(f"ctc beam {bc.beam_size}: the card's and the "
+                         "CPU's decodes differ")
+    return runs
+
+
+def ctc_families(dev, card, rev_vocab) -> dict:
+    """Phase 12: the hybrid CTC/attention family and the CTC family at
+    the flagship widths. Returns the launches of each main-path run."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import prof_port
+    paths = {}
+    for name, cfg in (("hybrid", hybrid_cfg()), ("ctc", ctc_cfg())):
+        shapes = step.init_params(torch.Generator(), cfg, device="meta")
+        print(f"{name} model: {seq2seq.param_count(shapes)} parameters")
+    # (a) the hybrid step (char + phone, ctc_weight 0.3)
+    paths["hybrid"] = train(hybrid_cfg(), dev, card, TRAIN_PATH,
+                            "hybrid training (-ctc_weight 0.3, char + phone)")
+    prof_port.profile_train(hybrid_cfg(), dev, "hybrid_step")
+    # (b) the CTC family's step
+    paths["ctc"] = train(ctc_cfg(), dev, card, CTC_PATH,
+                         "ctc training (-model_family ctc)")
+    if any(paths["ctc"][k] for k in ("dec_train_fwd", "dec_train_bwd")):
+        fail("the CTC step launched a decoder kernel")
+    prof_port.profile_train(ctc_cfg(), dev, "ctc_step")
+    # (c) the Trainers
+    paths.update(recipe(dev, card, "hybrid"))
+    paths.update(recipe(dev, card, "ctc"))
+    # (d) the command line, (e) serving
+    paths.update(ctc_entry_points(dev, card))
+    paths.update(serve_ctc_families(dev, card, rev_vocab))
+    prof_port.profile_joint_decode(dev)
+    return paths
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -2205,6 +2515,7 @@ def main() -> int:
     del gru_params
     with torch.no_grad():
         check_transducer_kernels(dev, record)
+        check_ctc_prefix(dev, record)
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
@@ -2261,6 +2572,11 @@ def main() -> int:
     paths.update(recipe(dev, card, "transducer"))
     paths.update(transducer_entry_points(dev, card))
     paths["serving transducer"] = serve_transducer(dev, card, rev_vocab)
+
+    # 12. the CTC family (-model_family ctc) and the hybrid CTC/attention
+    # family (-ctc_weight 0.3, decoded by joint beams on #16): steps,
+    # Trainers, the command line, serving
+    paths.update(ctc_families(dev, card, rev_vocab))
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f}"

@@ -8,8 +8,11 @@ bytes as the JAX command's for the same flags) and dispatches: training to
 the port's Trainer; `-dev` / `-test` evaluation to the greedy evaluator
 when beam_size is 1 and no beam feature is set, else to the beam
 evaluator (kernel #15's route at dev/test batches of 1 or 2, the per-step
-route above); with `-model_family transducer`, to the transducer
-evaluator (greedy at beam size 1, its beam search above).
+route above and for `-joint_ctc`, joint CTC/attention decoding of a
+hybrid checkpoint trained with `-ctc_weight`); with `-model_family ctc`,
+to the CTC evaluator (best path at beam size 1, the prefix beam search
+above); with `-model_family transducer`, to the transducer evaluator
+(greedy at beam size 1, its beam search above).
 
 Usage (the port has no bf16: pass -compute_dtype float32):
     python -m e2e_asr_tpu_torch.cli.main -compute_dtype float32 [flags]
@@ -21,9 +24,9 @@ the CPU through the kernels' plain versions.
 What the port does not honour raises NotImplementedError naming its
 ROADMAP.md item: bf16 compute, multi-host runs (-dist_coordinator), the
 TrainConfig options in train/loop.py `UNPORTED` (EMA, int8, checkpoint
-averaging, meshes, ...), the CTC family, LoRA, biasing, -lm_path, the
-beam features eval/beam.py lists and the transducer's n-best, lm_rescore
-and ILM subtraction.
+averaging, meshes, ...), LoRA, biasing, -lm_path, -ctc_rescore, the beam
+features eval/beam.py lists and the CTC and transducer families' n-best
+and lm_rescore.
 """
 from __future__ import annotations
 
@@ -99,7 +102,8 @@ def launch_eval(cfg: ExperimentConfig, device) -> None:
     from e2e_asr_tpu_torch.data import text
     from e2e_asr_tpu_torch.data.speech import SpeechDataset
     from e2e_asr_tpu_torch.eval.beam_eval import BeamEvaluator
-    from e2e_asr_tpu_torch.eval.greedy import (GreedyEvaluator,
+    from e2e_asr_tpu_torch.eval.greedy import (CTCEvaluator,
+                                               GreedyEvaluator,
                                                TransducerEvaluator)
     from e2e_asr_tpu_torch.train import step as step_lib
     from e2e_asr_tpu_torch.train.loop import Trainer
@@ -140,7 +144,16 @@ def launch_eval(cfg: ExperimentConfig, device) -> None:
     _, rev_vocab = text.initialize_vocabulary(
         path.join(tc.vocab_dir, "char.vocab"))
     start = time.time()
-    if cfg.model.model_family == "transducer":
+    if cfg.model.model_family == "ctc":
+        if bc.ilm_weight != 0.0:
+            raise ValueError("-ilm_weight needs a decoder with an internal "
+                             "LM (attention or transducer family); pure CTC "
+                             "has none — its fusion is already density-free")
+        evaluator = CTCEvaluator(
+            cfg.model, rev_vocab, tc.best_model_dir, beam_size=bc.beam_size,
+            lm_weight=bc.lm_weight, lm_rescore=bc.lm_rescore,
+            nbest=bc.nbest, device=device)
+    elif cfg.model.model_family == "transducer":
         evaluator = TransducerEvaluator(
             cfg.model, rev_vocab, tc.best_model_dir, beam_size=bc.beam_size,
             lm_weight=bc.lm_weight, ilm_weight=bc.ilm_weight,

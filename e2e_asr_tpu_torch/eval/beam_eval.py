@@ -1,6 +1,7 @@
 """Beam-search decoding and evaluation: encoder + batched beam search +
 WER (port of e2e_asr_tpu/eval/beam_eval.py `make_beam_decoder` and
-`BeamEvaluator`, attention family)."""
+`BeamEvaluator`, attention family, with one-pass joint CTC/attention
+decoding of a hybrid checkpoint)."""
 from __future__ import annotations
 
 import os
@@ -10,10 +11,12 @@ import torch
 from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.core.device import resolve
+from e2e_asr_tpu_torch.core.layers import dense
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.eval import score as score_lib
 from e2e_asr_tpu_torch.eval.score import WerAccumulator
 from e2e_asr_tpu_torch.eval.beam import beam_decode, check_supported
+from e2e_asr_tpu_torch.eval.ctc_prefix import CTCPrefixScorer
 from e2e_asr_tpu_torch.models import seq2seq
 
 
@@ -21,7 +24,11 @@ def make_beam_decoder(cfg: Seq2SeqConfig, beam_cfg: BeamConfig, *,
                       compute_dtype=None, lm_params=None, bias=None,
                       nbest: int = 1):
     """decode(params, batch) -> (tokens [B, max_steps], lens [B],
-    scores [B]) for the attention family, nbest=1, no LM.
+    scores [B]) for the attention family, nbest=1, no LM. With
+    beam_cfg.joint_ctc > 0 the hybrid checkpoint's CTC head scores the
+    same encoder pass (eval/ctc_prefix.CTCPrefixScorer, pre-pruned to
+    beam_cfg.ctc_pre_beam candidates where that is set); a tree without
+    `ctc_head` raises ValueError.
 
     batch: {"logmel": [B, T, feat] float32, "logmel_len": [B]} as numpy
     arrays or tensors; they are moved to the device of the parameters.
@@ -38,17 +45,27 @@ def make_beam_decoder(cfg: Seq2SeqConfig, beam_cfg: BeamConfig, *,
         raise NotImplementedError("bf16 compute is not ported yet "
                                   "(ROADMAP.md Queue 1, 'Decode features')")
     depth = cfg.num_layers["char"]
+    use_joint = beam_cfg.joint_ctc > 0.0
 
     @torch.no_grad()
     def decode(params, batch):
+        if use_joint and "ctc_head" not in params:
+            raise ValueError("-joint_ctc needs a hybrid checkpoint "
+                             "(train with -ctc_weight > 0)")
         dev = params["decoder_char"]["embedding"].device
         feats = torch.as_tensor(batch["logmel"], dtype=torch.float32,
                                 device=dev)
         feat_lens = torch.as_tensor(batch["logmel_len"], device=dev)
         attn_states, _, enc_lens = seq2seq.encode(params, cfg, feats,
                                                   feat_lens)
+        scorer = None
+        if use_joint:
+            scorer = CTCPrefixScorer(
+                dense(params["ctc_head"], attn_states[depth]),
+                enc_lens[depth], pre_beam=beam_cfg.ctc_pre_beam or None)
         return beam_decode(params["decoder_char"], dec_cfg, beam_cfg,
-                           attn_states[depth], enc_lens[depth])
+                           attn_states[depth], enc_lens[depth],
+                           ctc_scorer=scorer)
 
     return decode
 
@@ -57,7 +74,8 @@ class BeamEvaluator:
     """Beam-search evaluation (port of e2e_asr_tpu/eval/beam_eval.py
     `BeamEvaluator`, attention family): the encoder and the batched beam
     search (`make_beam_decoder`: kernel #15's route at B <= 2, the per-step
-    route above), detokenization, filler filtering and the edit distance;
+    route above and for joint CTC/attention decoding, `joint_ctc`),
+    detokenization, filler filtering and the edit distance;
     writes gold.txt and raw_{beam_size}.txt into out_dir and prints the
     score with its insertion / deletion / substitution breakdown.
 

@@ -8,13 +8,16 @@ the gold / raw / decoded files.
   GRU decoders);
 - `TransducerEvaluator`, the transducer family: greedy decode at beam size
   1 (models/transducer.greedy_decode), beam search above
-  (eval/transducer_beam.py).
+  (eval/transducer_beam.py);
+- `CTCEvaluator`, the CTC family: best path at beam size 1
+  (models/ctc.greedy_decode), the prefix beam search above
+  (eval/ctc_beam.py).
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-the CTC family's evaluator, the mesh (data-parallel decode), and the
-transducer's n-best output, LM rescoring, LM fusion, ILM subtraction and
-biasing. Params are float32: the port's loaders take no int8-quantized
-tree, and bf16 compute raises in the Trainer.
+the mesh (data-parallel decode), and the CTC and transducer families'
+n-best output, LM rescoring, LM fusion, ILM subtraction and biasing.
+Params are float32: the port's loaders take no int8-quantized tree, and
+bf16 compute raises in the Trainer.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.core.device import resolve
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.eval import score as score_lib
-from e2e_asr_tpu_torch.eval import transducer_beam
+from e2e_asr_tpu_torch.eval import ctc_beam, transducer_beam
 from e2e_asr_tpu_torch.eval.score import WerAccumulator
-from e2e_asr_tpu_torch.models import attn_decoder, seq2seq, transducer
+from e2e_asr_tpu_torch.models import attn_decoder, ctc, seq2seq, transducer
 
 
 class GreedyEvaluator:
@@ -133,3 +136,40 @@ class TransducerEvaluator(GreedyEvaluator):
             return transducer_beam.transducer_beam_search(
                 params, self.cfg, feats, lens, beam_size=self.beam_size)[0]
         return transducer.greedy_decode(params, self.cfg, feats, lens)
+
+
+class CTCEvaluator(GreedyEvaluator):
+    """The same scoring and files over the CTC family: best path at
+    beam_size 1, the prefix beam search otherwise; both return left-packed
+    token ids. lm_weight without lm_params, or with lm_rescore, raises
+    ValueError as in the JAX package."""
+
+    def __init__(self, cfg: Seq2SeqConfig, rev_vocab: list[str],
+                 out_dir: str, *, compute_dtype=None, beam_size: int = 1,
+                 file_prefix: str = "asr", lm_params=None,
+                 lm_weight: float = 0.0, lm_rescore: float = 0.0,
+                 bias=None, nbest: int = 1, mesh=None, device=None):
+        """Decodes on `device` (default: the CUDA card; raises without
+        one)."""
+        if (lm_weight != 0.0 or lm_rescore != 0.0) and lm_params is None:
+            raise ValueError("CTC LM fusion/rescoring needs -lm_path "
+                             "(no internal shared LM in this family)")
+        if lm_weight != 0.0 and lm_rescore != 0.0:
+            raise ValueError("-lm_rescore (second pass) and -lm_weight "
+                             "(per-step fusion) are two LM applications; "
+                             "pick one")
+        if nbest > 1:
+            raise NotImplementedError("CTC n-best output is not ported yet "
+                                      "(ROADMAP.md Queue 1, 'Decode "
+                                      "features')")
+        ctc_beam.check_supported(lm_params=lm_params, lm_weight=lm_weight,
+                                 bias=bias, lm_rescore=lm_rescore)
+        ctc._check_dtype(compute_dtype)
+        self.beam_size = beam_size
+        self._setup(cfg, rev_vocab, out_dir, file_prefix, mesh, device)
+
+    def _decode(self, params, feats, lens):
+        if self.beam_size > 1:
+            return ctc_beam.ctc_beam_search(params, self.cfg, feats, lens,
+                                            beam_size=self.beam_size)[0]
+        return ctc.greedy_decode(params, self.cfg, feats, lens)

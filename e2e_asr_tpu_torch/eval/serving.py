@@ -1,8 +1,10 @@
-"""Dynamic-batching serving engine (port of e2e_asr_tpu/eval/serving.py,
-attention and transducer families): many concurrent transcription
-requests, batched onto one device. The attention family decodes by beam
-search (eval/beam_eval.make_beam_decoder); the transducer family greedily
-at beam size 1 and by its beam search above
+"""Dynamic-batching serving engine (port of e2e_asr_tpu/eval/serving.py):
+many concurrent transcription requests, batched onto one device. The
+attention family decodes by beam search (eval/beam_eval.make_beam_decoder;
+a hybrid checkpoint by one-pass joint CTC/attention beams where
+beam_cfg.joint_ctc > 0); the CTC family by best path at beam size 1 and
+by its prefix beam search above (eval/ctc_beam.make_decoder); the
+transducer family greedily at beam size 1 and by its beam search above
 (eval/transducer_beam.make_decoder).
 
 - **Static shapes**: requests are grouped into fixed frame-length buckets
@@ -33,7 +35,7 @@ import torch
 
 from e2e_asr_tpu_torch.core.checkpoint import to_device
 from e2e_asr_tpu_torch.core.device import resolve
-from e2e_asr_tpu_torch.eval import transducer_beam
+from e2e_asr_tpu_torch.eval import ctc_beam, transducer_beam
 from e2e_asr_tpu_torch.eval.beam_eval import make_beam_decoder
 from e2e_asr_tpu_torch.config import BeamConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.data.text import get_relevant_words, ids_to_sentence
@@ -96,8 +98,9 @@ class BatchingTranscriber:
         self.stats = ServingStats()
         bc = beam_cfg or BeamConfig(beam_size=4,
                                     max_steps=cfg.max_output["char"])
-        make = (transducer_beam.make_decoder
-                if cfg.model_family == "transducer" else make_beam_decoder)
+        make = {"ctc": ctc_beam.make_decoder,
+                "transducer": transducer_beam.make_decoder}.get(
+                    cfg.model_family, make_beam_decoder)
         self._decode = make(cfg, bc, compute_dtype=compute_dtype,
                             lm_params=lm_params)
         self._queues: dict[int, list[_Request]] = {

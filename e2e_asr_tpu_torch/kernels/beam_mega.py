@@ -65,7 +65,7 @@ def _map(fn, state):
 
 @torch.no_grad()
 def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
-           select, attn=None, trace: bool = False):
+           select, attn=None, scorer=None, trace: bool = False):
     """The beam search a step at a time, over N = B*k rows (row = b*k + j):
     cells(params, x, context, lm_state, dec_states, use_lstm=) ->
     (lm_state, dec_states, query projection y), the additive attention
@@ -75,7 +75,12 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
     signature), select(scores, logp, alive, num_finished, eos_id=) ->
     kernel #14's dict, then the finished buffer, the compaction of the live
     slots (empty ones zero) and the best of finished u live. The query is
-    the top cell's c for LSTM cells and its h for GRU cells. With the plain
+    the top cell's c for LSTM cells and its h for GRU cells. With a
+    scorer (eval/ctc_prefix.CTCPrefixScorer: one-pass joint CTC/attention
+    decoding, kernel #16 on CUDA tensors), the selection ranks
+    (1 - w) * log-probs + w * the scorer's deltas, w = beam_cfg.joint_ctc,
+    and the scorer's state follows the live slots' (parent, token), a
+    dead slot's token taken as 0. With the plain
     versions of #11, #12 and #14 it is the plain version of this kernel;
     with the kernels, eval/beam.py's per-step route. Arguments and results
     as `beam_decode_mega`'s."""
@@ -98,6 +103,8 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
     fin_seqs = torch.zeros(B, k + 1, S, dtype=torch.long, device=dev)
     fin_lens = torch.zeros(B, k + 1, dtype=torch.long, device=dev)
     rows = torch.arange(B, device=dev)[:, None]
+    jw = beam_cfg.joint_ctc
+    ctc_state = None if scorer is None else scorer.init_state(k)
     steps = []
     t = 0
     while t < S and bool(alive.any()):
@@ -109,8 +116,11 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
         else:
             ctx_new, _ = attn_output.attend(params, y, hf, enc, mask, k=k)
             logp = output(params, cfg, query, ctx_new)
-        sel = select(scores, logp.view(B, k, -1), alive, fin_count,
-                     eos_id=EOS_ID)
+        logp = logp.view(B, k, -1)
+        if scorer is not None:
+            delta, cand_ps = scorer.step(ctc_state, logp)
+            logp = (1.0 - jw) * logp + jw * delta
+        sel = select(scores, logp, alive, fin_count, eos_id=EOS_ID)
         if trace:
             steps.append([sel[key] for key in ("vals", "parent", "token")])
         parent, token = sel["parent"].long(), sel["token"].long()
@@ -125,7 +135,11 @@ def search(params: dict, cfg, beam_cfg, enc, hf, mask, *, cells, output,
         # Live slots in rank order from their parents; empty slots zero.
         order = sel["order"].long()
         alive = sel["slot_valid"] > 0
-        src = (rows * k + torch.gather(parent, 1, order)).flatten()
+        sel_parent = torch.gather(parent, 1, order)
+        if scorer is not None:
+            ctc_state = scorer.select(cand_ps, sel_parent, torch.where(
+                alive, torch.gather(token, 1, order), 0))
+        src = (rows * k + sel_parent).flatten()
         keep = alive.reshape(-1, 1)
         take = lambda x: torch.where(keep, x[src], 0.0)  # noqa: E731
         lm = _map(take, lm_new)

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "e2e_beam_mega": [_P, _I, _P, _I, ctypes.c_double, _P],
     "e2e_transducer_fwd": [_P] * 6 + [_I, _I, _I, _P],
     "e2e_transducer_bwd": [_P] * 9 + [_I, _I, _I, _P],
+    "e2e_ctc_prefix_scan": [_P] * 9 + [_I, _I, _I, _P],
 }
 _lock = threading.Lock()
 

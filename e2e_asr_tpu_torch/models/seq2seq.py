@@ -12,23 +12,28 @@ from e2e_asr_tpu_torch.data.text import GO_ID
 from e2e_asr_tpu_torch.models import attn_decoder, encoder
 
 
+FAMILIES = ("attention", "ctc", "transducer")
+
+
 def check_supported(cfg: Seq2SeqConfig) -> None:
-    """Raises for the families the port does not have: the attention and
-    transducer families pass."""
-    if cfg.model_family not in ("attention", "transducer"):
-        raise NotImplementedError(
-            f"the {cfg.model_family} family is not ported yet (ROADMAP.md "
-            "Queue 1, 'CTC family')")
+    """Raises ValueError for a model family the JAX package does not
+    have."""
+    if cfg.model_family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.model_family!r} "
+                         f"(one of {FAMILIES})")
 
 
 def check_attention(cfg: Seq2SeqConfig) -> None:
     """check_supported, and raises ValueError for a family other than the
-    attention family, whose decoders this module runs (the transducer's
-    model is models/transducer.py)."""
+    attention family, whose decoders this module runs (the CTC and
+    transducer families' models are models/ctc.py and
+    models/transducer.py; the hybrid CTC/attention model is the attention
+    family with ctc_weight > 0, models/hybrid.py)."""
     check_supported(cfg)
     if cfg.model_family != "attention":
         raise ValueError(f"the {cfg.model_family} family has no attention "
-                         "decoder (its model is models/transducer.py)")
+                         f"decoder (its model is models/"
+                         f"{cfg.model_family}.py)")
 
 
 def init(gen: torch.Generator, cfg: Seq2SeqConfig, *, device=None) -> dict:
@@ -71,10 +76,6 @@ def encode(params: dict, cfg: Seq2SeqConfig, feats: torch.Tensor,
 
 
 def _check_train_supported(cfg: Seq2SeqConfig) -> None:
-    if cfg.ctc_weight > 0:
-        raise NotImplementedError("the hybrid CTC/attention loss is not "
-                                  "ported yet (ROADMAP.md Queue 1, 'CTC "
-                                  "family')")
     if cfg.lora_rank > 0:
         raise NotImplementedError("LoRA is not ported yet (ROADMAP.md Queue "
                                   "1, 'Training extensions')")
@@ -99,6 +100,23 @@ def apply_train(params: dict, cfg: Seq2SeqConfig, batch: dict, *,
     attn_states, _, enc_lens = encode(params, cfg, batch["logmel"],
                                       batch["logmel_len"], train=True,
                                       gen=gen, drop_masks=noise.get("encoder"))
+    task_losses = decoder_losses(params, cfg, batch, attn_states, enc_lens,
+                                 gen=gen, noise=noise,
+                                 label_smoothing=cfg.label_smoothing)
+    total = sum(task_losses.values())
+    if cfg.avg:
+        total = total / float(len(cfg.tasks))
+    return total, task_losses
+
+
+def decoder_losses(params: dict, cfg: Seq2SeqConfig, batch: dict,
+                   attn_states: dict, enc_lens: dict, *, gen=None,
+                   noise: dict | None = None,
+                   label_smoothing: float = 0.0) -> dict:
+    """Each task's cross entropy from its decoder's training pass over the
+    encoder's states at the task's depth (apply_train's decoder half;
+    noise[task] as apply_train's)."""
+    noise = noise or {}
     task_losses = {}
     for task in cfg.tasks:
         depth = cfg.num_layers[task]
@@ -110,11 +128,8 @@ def apply_train(params: dict, cfg: Seq2SeqConfig, batch: dict, *,
         targets, _ = losses.shifted_targets(dec_inputs, batch[f"{task}_len"])
         task_losses[task] = losses.cross_entropy_loss(
             logits, targets, batch[f"{task}_len"],
-            label_smoothing=cfg.label_smoothing)
-    total = sum(task_losses.values())
-    if cfg.avg:
-        total = total / float(len(cfg.tasks))
-    return total, task_losses
+            label_smoothing=label_smoothing)
+    return task_losses
 
 
 @torch.no_grad()

@@ -24,11 +24,13 @@ randomness of the steps (dropout, scheduled sampling, the LM's dropout) is
 drawn from one torch.Generator on that device, seeded as the reference
 seeds its key; the coins and the data order use the reference's seeds.
 
-The attention and transducer families train (the transducer's dev WER
-through eval/greedy.TransducerEvaluator, greedy). TrainConfig fields the
-port does not honour raise NotImplementedError, naming their ROADMAP.md
-item, when they differ from their default (`UNPORTED`); so do bf16
-compute (set compute_dtype="float32") and the CTC family. Before its first
+Every model family trains: the attention family (with a CTC head and
+the hybrid loss where ctc_weight > 0), the CTC family (its dev WER through
+eval/greedy.CTCEvaluator, best path) and the transducer family (through
+eval/greedy.TransducerEvaluator, greedy). TrainConfig fields the port does
+not honour raise NotImplementedError, naming their ROADMAP.md item, when
+they differ from their default (`UNPORTED`); so does bf16 compute (set
+compute_dtype="float32"). Before its first
 step, `train` raises ValueError where the LM task would run on a GRU char
 decoder (the JAX package has no GRU LM, models/rnn_lm.py). `platform` and `score_unit` are
 the command line's (cli/main.py), as in the JAX package, whose Trainer
@@ -53,7 +55,8 @@ from e2e_asr_tpu_torch.core.summary import SummaryWriter
 from e2e_asr_tpu_torch.data import text
 from e2e_asr_tpu_torch.data.lm import LMDataset
 from e2e_asr_tpu_torch.data.speech import SpeechDataset, prefetch
-from e2e_asr_tpu_torch.eval.greedy import GreedyEvaluator, TransducerEvaluator
+from e2e_asr_tpu_torch.eval.greedy import (CTCEvaluator, GreedyEvaluator,
+                                           TransducerEvaluator)
 from e2e_asr_tpu_torch.models import rnn_lm
 from e2e_asr_tpu_torch.train import step as step_lib
 
@@ -207,8 +210,9 @@ class Trainer:
         lm_iter = None
 
         rev_vocab = self._load_rev_vocab()
-        eval_cls = (TransducerEvaluator if cfg.model_family == "transducer"
-                    else GreedyEvaluator)
+        eval_cls = {"ctc": CTCEvaluator,
+                    "transducer": TransducerEvaluator}.get(
+            cfg.model_family, GreedyEvaluator)
         evaluator = (eval_cls(cfg, rev_vocab, tc.best_model_dir,
                               device=self.device)
                      if dev_set is not None and rev_vocab else None)

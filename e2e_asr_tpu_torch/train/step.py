@@ -1,12 +1,14 @@
-"""Training steps (port of e2e_asr_tpu/train/step.py): the ASR step of the
-attention and transducer families and the interleaved LM task, each Adam
-behind global-norm clipping.
+"""Training steps (port of e2e_asr_tpu/train/step.py): the ASR step of
+every model family and the interleaved LM task, each Adam behind
+global-norm clipping.
 
 `init_params(gen, cfg)` lays out a family's parameters.
 `asr_step(state, batch, gen, noise=None) -> (new_state, metrics)` runs the
-training forward (models/seq2seq.apply_train, or models/transducer.loss on
-the CTC family's labels for the transducer), its gradients by autograd
-(on the card through the hand-written backward kernels), then clip + Adam.
+training forward (models/seq2seq.apply_train for the attention family,
+models/hybrid.loss where ctc_weight > 0, models/ctc.loss and
+models/transducer.loss on the CTC labels `_ctc_labels` derives from the
+char ids), its gradients by autograd (on the card through the hand-written
+backward kernels), then clip + Adam.
 `lm_step(state, token_ids, seq_len, gen, valid=None, noise=None)` does the
 same for the weight-tied LM (models/rnn_lm.loss, kernels #3 and #5) with
 its own Adam slots and step counter over the same parameter tree: the
@@ -37,7 +39,7 @@ from e2e_asr_tpu_torch.config import LMConfig, Seq2SeqConfig
 from e2e_asr_tpu_torch.core.checkpoint import (SEP, _fill, flatten_named,
                                                named_from_params, to_device)
 from e2e_asr_tpu_torch.core.device import resolve
-from e2e_asr_tpu_torch.models import rnn_lm, seq2seq, transducer
+from e2e_asr_tpu_torch.models import ctc, hybrid, rnn_lm, seq2seq, transducer
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -105,13 +107,19 @@ class Optimizer(NamedTuple):
 def init_params(gen: torch.Generator, model_cfg: Seq2SeqConfig, *,
                 device=None) -> dict:
     """Random parameters of the configured model family on `device`
-    (default: the CUDA card): the transducer's (models/transducer.init) or
-    the attention family's (models/seq2seq.init)."""
+    (default: the CUDA card): the CTC family's (models/ctc.init: the
+    encoder and a CTC head), the transducer's (models/transducer.init),
+    the hybrid's (ctc_weight > 0, models/hybrid.init: the attention
+    family's tree and a CTC head) or the attention family's
+    (models/seq2seq.init)."""
     seq2seq.check_supported(model_cfg)
+    vocab = model_cfg.decoders["char"].vocab_size
+    if model_cfg.model_family == "ctc":
+        return ctc.init(gen, model_cfg, vocab, device=device)
     if model_cfg.model_family == "transducer":
-        return transducer.init(gen, model_cfg,
-                               model_cfg.decoders["char"].vocab_size,
-                               device=device)
+        return transducer.init(gen, model_cfg, vocab, device=device)
+    if model_cfg.ctc_weight > 0:
+        return hybrid.init(gen, model_cfg, device=device)
     return seq2seq.init(gen, model_cfg, device=device)
 
 
@@ -272,8 +280,6 @@ def make_train_step(model_cfg: Seq2SeqConfig, lm_cfg: LMConfig,
         (enc.remat, "remat", "Training extensions"),
         (any(m is not None for m in (pp_mesh, sp_mesh, ep_mesh)),
          "pp/sp/ep meshes", "Parallelism last"),
-        (model_cfg.ctc_weight > 0, "the hybrid CTC/attention loss",
-         "CTC family"),
     ]
     for bad, name, item in checks:
         if bad:
@@ -299,18 +305,24 @@ def make_train_step(model_cfg: Seq2SeqConfig, lm_cfg: LMConfig,
         """(total, per-task losses, grads in the params' layout) of the
         training forward on `batch`: what asr_step hands the optimizer."""
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        if model_cfg.model_family == "transducer":
-            labels, label_lens = _ctc_labels(batch)
-            tb = dict(batch, labels=labels, label_lens=label_lens)
+        family = model_cfg.model_family
+        if family == "attention" and model_cfg.ctc_weight <= 0:
+            return grads_of(params, lambda p: seq2seq.apply_train(
+                p, model_cfg, batch, gen=gen, noise=noise))
+        labels, label_lens = _ctc_labels(batch)
+        lb = dict(batch, labels=labels, label_lens=label_lens)
+        if family == "attention":
+            return grads_of(params, lambda p: hybrid.loss(
+                p, model_cfg, lb, ctc_weight=model_cfg.ctc_weight, gen=gen,
+                noise=noise))
+        model = ctc if family == "ctc" else transducer
 
-            def transducer_loss(p):
-                total = transducer.loss(p, model_cfg, tb, train=True,
-                                        gen=gen, noise=noise)
-                return total, {"transducer": total}
+        def family_loss(p):
+            total = model.loss(p, model_cfg, lb, train=True, gen=gen,
+                               noise=noise)
+            return total, {family: total}
 
-            return grads_of(params, transducer_loss)
-        return grads_of(params, lambda p: seq2seq.apply_train(
-            p, model_cfg, batch, gen=gen, noise=noise))
+        return grads_of(params, family_loss)
 
     def asr_step(state: TrainState, batch: dict, gen: torch.Generator,
                  noise: dict | None = None):

@@ -153,7 +153,6 @@ def test_what_the_port_lacks_raises(workspace, monkeypatch):
         main.main(_args(root, "-platform", "tpu"))
     for extra in (["-dist_coordinator", "localhost:1"], ["-ssl"],
                   ["-ema_decay", "0.9"], ["-lora_rank", "2"],
-                  ["-model_family", "ctc"],
                   ["-dev", "-eval_ema"], ["-dev", "-quantize", "int8"],
                   ["-dev", "-eval_avg_ckpts", "3"], ["-dev", "-data_axis", "2"],
                   ["-dev", "-lm_path", "lm.npz"],

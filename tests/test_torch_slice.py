@@ -136,6 +136,7 @@ def test_unported_features_raise(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         beam_eval.make_beam_decoder(cfg, BeamConfig(), nbest=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        seq2seq.init(torch.Generator(),
-                     dataclasses.replace(cfg, model_family="ctc"),
-                     device="cpu")
+        seq2seq.init(torch.Generator(), dataclasses.replace(
+            cfg, encoder=dataclasses.replace(cfg.encoder,
+                                             encoder_type="transformer")),
+            device="cpu")

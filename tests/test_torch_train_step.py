@@ -259,8 +259,7 @@ def test_unported_options_raise(setup):
                dict(compute_dtype="bfloat16"), dict(pp_mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             step.make_train_step(cfg, lm_cfg, device="cpu", **kw)
-    for bad in (dataclasses.replace(cfg, model_family="ctc"),
-                dataclasses.replace(cfg, ctc_weight=0.3),
+    for bad in (dataclasses.replace(cfg, lora_rank=2),
                 dataclasses.replace(cfg, encoder=dataclasses.replace(
                     cfg.encoder, remat=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -697,19 +697,19 @@ def test_greedy_caps_labels_per_frame(per_frame):
 
 @pytest.mark.parametrize("family", ["attention", "transducer", "ctc"])
 def test_family_guards(family):
-    """check_supported lets the attention and transducer families through
-    and raises for the CTC family; check_attention and seq2seq.init raise
-    for any family but the attention family."""
+    """check_supported lets every family of the JAX package through (the
+    CTC family since it was ported); check_attention and seq2seq.init
+    raise for any family but the attention family, naming the family's
+    model."""
     cfg = dataclasses.replace(rnnt_cfg(), model_family=family)
-    if family == "ctc":
-        with pytest.raises(NotImplementedError, match="CTC family"):
-            seq2seq.check_supported(cfg)
-        return
     seq2seq.check_supported(cfg)
-    if family == "transducer":
-        with pytest.raises(ValueError, match="models/transducer.py"):
+    if family != "attention":
+        with pytest.raises(ValueError, match=f"models/{family}.py"):
             seq2seq.check_attention(cfg)
         with pytest.raises(ValueError, match="attention decoder"):
             seq2seq.init(torch.Generator(), cfg, device="cpu")
     else:
         seq2seq.check_attention(cfg)
+    with pytest.raises(ValueError, match="model family"):
+        seq2seq.check_supported(dataclasses.replace(cfg,
+                                                    model_family="other"))

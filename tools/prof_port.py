@@ -39,6 +39,10 @@ chip_smoke.py's):
    PyTorch, kernel #17 both ways; the backward chain kernel is split into
    A's two-direction launches and #5's one-direction ones), and the
    transducer's joint alone, forward and backward, at the step's shapes;
+   then one asr_step of the hybrid CTC/attention model (`-ctc_weight
+   0.3`, char + phone) and of the CTC family (`-model_family ctc`), and
+   the hybrid's decode of a batch of 8 512-frame utterances by joint
+   CTC/attention beams (kernel #16 every step) and by its plain beam;
 4. the GRU decode of the `-gru` flagship (random weights from seed 0) on
    the encoder output of 512-frame utterances: one beam search (beam 4,
    120 steps) of a batch of 8 by the per-step route (#11's GRU branch, the
@@ -288,7 +292,8 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "gru_fwd_kernel", "gru_bwd_chain_kernel", "cells_fused_kernel",
                "output_fused_kernel", "beam_select_kernel",
                "beam_mega_kernel", "attn_output_kernel",
-               "transducer_fwd_kernel", "transducer_bwd_kernel")
+               "transducer_fwd_kernel", "transducer_bwd_kernel",
+               "ctc_prefix_kernel")
 # PyTorch's own kernels by what they compute (the rest is "other").
 TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
 
@@ -391,6 +396,29 @@ def profile_gru_decode(dev) -> dict:
             0)}
 
 
+def profile_joint_decode(dev) -> dict:
+    """The flagship hybrid's (random weights from seed 0) decode of a batch
+    of 8 512-frame utterances at beam 4 through make_beam_decoder, by joint
+    CTC/attention beams (joint 0.3: kernel #16 every step beside #11, #12
+    and #14) and by the plain beam of the same model: wall, device busy
+    share and per-kernel split, as a step's."""
+    cfg = chip_smoke.hybrid_cfg(40, None)
+    params = step.init_params(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    rng = np.random.default_rng(5)
+    batch = {"logmel": rng.normal(size=(8, 512, cfg.feat_length)).astype(
+        np.float32), "logmel_len": np.full(8, 512)}
+    out = {}
+    for name, joint in (("joint_decode_b8", chip_smoke.JOINT_CTC),
+                        ("hybrid_beam_decode_b8", 0.0)):
+        decode = beam_eval.make_beam_decoder(cfg, BeamConfig(
+            beam_size=4, max_steps=120, joint_ctc=joint))
+        with torch.no_grad():
+            out[name] = profile_step(f"{name} (beam 4, joint {joint})",
+                                     lambda: decode(params, batch), 0)
+    return out
+
+
 def profile_train(cfg, dev, name: str | None = None) -> dict:
     """One asr_step of `cfg` at the bench's train shape, and one lm_step at
     the LM task's shape when `cfg` has a phone task and an LSTM char
@@ -460,6 +488,9 @@ def main() -> int:
     result.update(profile_train(chip_smoke.transducer_cfg(), dev,
                                 "transducer_step"))
     result.update(profile_joint(dev))
+    result.update(profile_train(chip_smoke.hybrid_cfg(), dev, "hybrid_step"))
+    result.update(profile_train(chip_smoke.ctc_cfg(), dev, "ctc_step"))
+    result.update(profile_joint_decode(dev))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
