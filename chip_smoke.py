@@ -59,6 +59,15 @@ Phases; any failure exits nonzero and prints no result line:
      pre-beam P=k=4 < V; T=61. psi, rn and rb within 1e-5 of
      max(|value|, 1), entries at NEG_INF on both sides or neither;
      library none;
+   - the deep decoders' kernels on deep_cfg (the flagship widths with a
+     two-layer char decoder, 1280-wide LM cells through SimpleProjection
+     and ind_softmax): kernel #4 in its inference, masked and training
+     forms and #5's wide form (the kernel and the dW matmul beside it
+     timed apart) at the LM task's shape with H=1280 (B=128, T=120,
+     lengths 24-120), beside cuDNN's unidirectional nn.LSTM; #15 on the
+     deep decoder as #15's cases above; the deep branches of #8/#9 and of
+     #10 (`-gru`) at B=128, 47 steps, 48 encoder frames, sampling on every
+     other step and dropout with the inter-layer masks;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -153,13 +162,29 @@ Phases; any failure exits nonzero and prints no result line:
    and the CPU with identical token rows; then the device split of a
    joint decode of 8 utterances beside the plain beam's
    (tools/prof_port.py).
+13. the deep decoders (deep_cfg; `-num_layers_dec 2 -lm_hsize 1280
+   -ind_softmax`): (a) one char + phone asr_step at B=16 on the card and
+   on the CPU, LSTM and `-gru`, and one lm_step at H=1280, must agree
+   (phase 5's tolerances); (b) three asr_steps at B=128, T=384, L=48 and
+   three lm_steps at B=128, T=120: every loss finite, #4's training form,
+   #5's wide form and #8/#9 launched, #8 at depth 2 for the char decoder
+   and 1 for the phone decoder (dec_train.DEPTHS), #3 and #5 not; their
+   times, frames/s and tokens/s and the step's device split
+   (tools/prof_port.py); (c) the Trainer on phase 6's corpus with the LM
+   task (train, greedy dev WER, save, exact resume); (d) `cli.main` with
+   those flags, LSTM and `-gru`: train (the char_dec_dep_2_ run
+   directory), `-dev -beam_size 4 -buck_batch_sizes 1` (one #15 launch an
+   utterance) and `-test -beam_size 4` at 64 (the per-step route); (e)
+   phase 4's serving burst on the deep model, and one batch decoded on
+   the card equal to the CPU's up to near-ties.
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
 entry-point run, the GRU runs, the #13 runs, the transducer runs, the CTC
-and hybrid runs) counts its kernels' launches from zero; a row's
+and hybrid runs, the deep decoders' runs) counts its kernels' launches
+from zero; a row's
 `launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
 the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off. No phase runs at a cut depth: the whole run
-took 158-162 s on the card with the CTC families' phase, the build
+took 196 s on the card with the deep decoders' phase, the build
 included.
 """
 from __future__ import annotations
@@ -213,10 +238,15 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "dec_train_gru_fwd": 1e-4, "dec_train_gru_bwd": 1e-4,
        "dec_train_gru_fwd_phone": 1e-4, "dec_train_gru_bwd_phone": 1e-4,
        "cells_fused_gru": 1e-4, "attn_output_fused": 1e-4,
-       "transducer_fwd": 1e-5, "transducer_bwd": 1e-5, "ctc_prefix": 1e-5}
+       "transducer_fwd": 1e-5, "transducer_bwd": 1e-5, "ctc_prefix": 1e-5,
+       "lstm_seq_wide": 1e-4, "lstm_seq_wide_masked": 1e-4,
+       "lstm_seq_wide_train": 1e-4, "lstm_bwd_wide": 1e-4,
+       "dec_train_fwd_deep": 1e-4, "dec_train_bwd_deep": 1e-4,
+       "dec_train_gru_fwd_deep": 1e-4, "dec_train_gru_bwd_deep": 1e-4}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
-            "dec_train_gru_bwd_phone"}
+            "dec_train_gru_bwd_phone", "lstm_bwd_wide", "dec_train_bwd_deep",
+            "dec_train_gru_bwd_deep"}
 NEAR_TIE = 1e-3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
 TRAIN_B, TRAIN_T, TRAIN_L = 128, 384, 48  # the bench's train shape
@@ -242,6 +272,8 @@ RNNT_B, RNNT_T, RNNT_U = TRAIN_B, TRAIN_T // 8, TRAIN_L - 1
 CTC_PREFIX_CASES = [(8, 4, MEGA_T, 40, None), (1, 16, MEGA_T, 40, None),
                     (8, 4, MEGA_T, 40, 4), (8, 4, 61, 40, None)]
 JOINT_CTC = 0.3
+WIDE_LM = 1280     # deep_cfg's LM cell: the narrowest width past #3's cap
+                   # at which the JAX package itself streams W_h (#4)
 
 
 def fail(msg: str):
@@ -331,6 +363,21 @@ def ctc_cfg(char_vocab: int = 40):
     """The flagship encoder under a CTC head: `-model_family ctc` at the
     flagship widths."""
     return dataclasses.replace(flagship_cfg(char_vocab), model_family="ctc")
+
+
+def deep_cfg(cells: str = "lstm", char_vocab: int = 40,
+             phone_vocab: int | None = PHONE_VOCAB):
+    """The deep decoders at the flagship widths: the char decoder two
+    layers deep, both decoders' LM cells WIDE_LM wide (so SimpleProjection
+    1280 -> 256 in both, as the JAX package's config.py sets them) and
+    ind_softmax; the phone decoder one layer (config.py: only the char
+    decoder can be deep). `-num_layers_dec 2 -lm_hsize 1280 -ind_softmax`,
+    with GRU cells throughout for cells="gru" (`-gru`, no LM task)."""
+    base = flagship_cfg(char_vocab, phone_vocab, cells)
+    return dataclasses.replace(base, decoders={
+        t: dataclasses.replace(d, lm_hidden_size=WIDE_LM, ind_softmax=True,
+                               num_layers_dec=2 if t == "char" else 1)
+        for t, d in base.decoders.items()})
 
 
 class Recorder:
@@ -518,8 +565,8 @@ def near_tie_partings(what: str, free, kernel_tokens, gum_sh, flag_sh
 
 def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
     """Phase 3, training kernels at the train shapes: A's training form and
-    backward on encoder layer 1 (T=384, B=128, H=256), the decoder's
-    training forward and backward (B=128, 47 steps, 48 encoder frames)."""
+    backward on encoder layer 1 (T=384, B=128, H=256), then the decoder's
+    training forward and backward (check_dec_train)."""
     rng = np.random.default_rng(3)
     rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
         rng.normal(size=s).astype(np.float32) * scale, device=dev)
@@ -570,66 +617,102 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            (3 * lstm_ops, nbytes(*one_args, *got)),
            lambda: cudnn_lstm_ms(x, lens, H, False, True))
 
-    # The decoder's training pass on encoder-layer-4-sized states, with
-    # scheduled sampling on every other step and dropout.
-    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
-    S, Te = TRAIN_L - 1, TRAIN_T // 8
+
+def check_dec_train(params, cfg, dev, record: Recorder, seed: int,
+                    task: str = "char", suffix: str = "") -> None:
+    """Phase 3, the decoder's training kernels at the step's shapes: #8/#9
+    (LSTM cells) or #10 (GRU cells) on `task`'s decoder, B=128, 47 steps,
+    over the encoder frames of its depth (48 for the char decoder, 96 for
+    the phone decoder on layer 3), scheduled sampling on every other step,
+    dropout (with the inter-layer masks of a deep decoder). Rows
+    "dec_train[_gru]_fwd<suffix>" and "..._bwd<suffix>"."""
+    dec, dcfg = params[f"decoder_{task}"], cfg.decoders[task]
+    use_lstm = dcfg.use_lstm
+    mod = dec_train if use_lstm else dec_train_gru
+    run = dec_train.dec_train if use_lstm else dec_train_gru.dec_train_gru
+    ref = (dec_train.dec_train_reference if use_lstm
+           else dec_train_gru.dec_train_gru_reference)
+    name = "dec_train" if use_lstm else "dec_train_gru"
+    rng = np.random.default_rng(seed)
+    rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32) * scale, device=dev)
+    H = cfg.encoder.hidden_size
+    B, S = TRAIN_B, TRAIN_L - 1
+    Te = TRAIN_T // 2 ** (cfg.num_layers[task] - 1)
     enc = rand(B, Te, 2 * H, scale=0.5)
     enc_lens = torch.tensor(rng.integers(Te // 2, Te + 1, size=B), device=dev)
     enc_lens[0] = Te
     ids = torch.tensor(rng.integers(3, dcfg.vocab_size, size=(S + 1, B)),
                        device=dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    _, gumbel, lm_masks, _ = attn_decoder.train_noise(gen, dcfg, S, B, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _, gumbel, lm_masks, inter = attn_decoder.train_noise(gen, dcfg, S, B,
+                                                          dev)
     flags = (torch.arange(S, device=dev) % 2).float()
+    M, G, NL = dcfg.emb_size, dcfg.lm_hidden_size, dcfg.num_layers_dec
+    sp = "simple_proj" in dec
+    lm = dec["lm_cell"]
     with torch.no_grad():
-        emb_in = dec["embedding"][ids]
-        tlmx = (emb_in[:S] @ dec["lm_cell"]["kernel"][:dcfg.emb_size]
-                + dec["lm_cell"]["bias"])
-        weights = [w.contiguous() for w in dec_train.weight_args(
-            dec, dcfg.emb_size)]
+        x = dec["embedding"][ids][:S]
+        xs = ([x @ lm["kernel"][:M] + lm["bias"]] if use_lstm else
+              [x @ lm["gates"]["kernel"][:M] + lm["gates"]["bias"],
+               x @ lm["candidate"]["kernel"][:M] + lm["candidate"]["bias"]])
+        weights = [w.contiguous() for w in mod.weight_args(dec, M)]
         hf = enc @ dec["attn_w"]
-    amask = (torch.arange(Te, device=dev)[None, :]
-             < enc_lens[:, None]).float()
-    gum_sh = torch.cat([gumbel.new_zeros(1, B, dcfg.vocab_size),
-                        gumbel[:-1]])
-    flag_sh = torch.cat([flags.new_zeros(1), flags[:-1]])[:, None].expand(
-        S, B).contiguous()
+    amask = dec_train.attn_mask(enc, enc_lens)
+    gum_sh, flag_sh = dec_train.shift_noise(flags, gumbel, B)
+    lm_masks, inter = dec_train.stack_masks(lm_masks, inter, S, B)
+    n_w = len(weights)
     leaves = [t.detach().requires_grad_(True)
-              for t in (*weights, hf, enc, tlmx)]
-    d_args = (leaves[:13], *leaves[13:15], amask, leaves[15], gum_sh,
-              flag_sh, lm_masks)
-    logits = dec_train.dec_train(*d_args)
-    kernel_tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
+              for t in (*weights, hf, enc, *(a.contiguous() for a in xs))]
+    args = (leaves[:n_w], *leaves[n_w:n_w + 2], amask, *leaves[n_w + 2:],
+            gum_sh, flag_sh, lm_masks, inter)
+    depth = mod.DEPTHS.get(NL, 0)
+    logits = run(*args, sp=sp)
+    if mod.DEPTHS.get(NL, 0) != depth + 1:
+        fail(f"{name}{suffix} did not launch at depth {NL}")
+    tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
     with torch.no_grad():
-        free = dec_train.dec_train_reference(*d_args)
-    near_tie_partings("dec_train", free, kernel_tokens, gum_sh, flag_sh)
+        free = ref(*args, sp=sp)
+    parted = near_tie_partings(f"{name}{suffix}", free, tokens, gum_sh,
+                               flag_sh)
 
     def plain():
-        return dec_train.dec_train_reference(*d_args, sampled=kernel_tokens)
+        return ref(*args, sampled=tokens, sp=sp)
 
-    G, D, E, A, V = (dcfg.lm_hidden_size, dcfg.hidden_size_dec, 2 * H,
-                     dcfg.attention_vec_size, dcfg.vocab_size)
-    M = dcfg.emb_size
-    products = (G * 4 * G + (G + E) * M + (M + D) * 4 * D + D * A
-                + (D + E) * D + D * V)
+    D, E, A, V = (dcfg.hidden_size_dec, 2 * H, dcfg.attention_vec_size,
+                  dcfg.vocab_size)
+    # The products of a row and step: every 2-D weight but the embedding
+    # rows (EWb, gathered): the LM cell's recurrence, SimpleProjection, the
+    # input projection, the decoder layers, the query and projections.
+    gathered = 1 if use_lstm else 2
+    products = sum(w.numel() for w in weights[gathered:] if w.dim() == 2)
     attn = Te * A * 3 + Te * E * 2
-    inputs = nbytes(*leaves, amask, gum_sh, flag_sh, lm_masks)
+    inputs = nbytes(*leaves, amask, gum_sh, flag_sh, lm_masks, inter)
+    src = f"e2e_asr_tpu_torch/csrc/{name}.cu"
+    pallas, fwd_line, bwd_line = (
+        ("e2e_asr_tpu/ops/dec_train_pallas.py", 337, 656) if use_lstm
+        else ("e2e_asr_tpu/ops/dec_train_gru_pallas.py", 323, 613))
     with torch.no_grad():
-        record("dec_train_fwd", "e2e_asr_tpu_torch/csrc/dec_train.cu",
-               "e2e_asr_tpu/ops/dec_train_pallas.py:337", [logits.detach()],
-               [plain()], lambda: dec_train.dec_train(*d_args), plain, 5, 2,
-               (S * B * (2 * products + attn), inputs + nbytes(logits)))
+        record(f"{name}_fwd{suffix}", src, f"{pallas}:{fwd_line}",
+               [logits.detach()], [plain()], lambda: run(*args, sp=sp),
+               plain, 5, 2,
+               (S * B * (2 * products + attn), inputs + nbytes(logits)),
+               near_tie_rows=parted)
     dlog = rand(S, B, V)
     got = torch.autograd.grad(logits, leaves, dlog, retain_graph=True)
     want_out = plain()
     want = torch.autograd.grad(want_out, leaves, dlog, retain_graph=True)
-    # Data gradients, then the weight gradients: twice the forward's
-    # products, and about three times its attention work. It reads the
-    # forward's saves: per row and step 7G + M + 7D + A + Te + E + V floats.
-    saves = S * B * 4 * (7 * G + M + 7 * D + A + Te + E + V)
-    record("dec_train_bwd", "e2e_asr_tpu_torch/csrc/dec_train.cu",
-           "e2e_asr_tpu/ops/dec_train_pallas.py:656", got, want,
+    # The data gradients, then the weight gradients: twice the forward's
+    # products and about three times its attention work, reading the
+    # forward's saves: per row and step the LM cell's 7G (LSTM: gates, c,
+    # h, output) or 6G (GRU: r | u, r*h, c, h, output), D through
+    # SimpleProjection, M, a layer's 6D (LSTM: gates, c, h) or 5D (GRU),
+    # D a dropped layer output below the top, and A + Te + E + D + V.
+    per_layer = 6 * D if use_lstm else 5 * D
+    saves = S * B * 4 * ((7 if use_lstm else 6) * G + (D if sp else 0) + M
+                         + NL * per_layer + (NL - 1) * D + A + Te + E + D
+                         + V)
+    record(f"{name}_bwd{suffix}", src, f"{pallas}:{bwd_line}", got, want,
            lambda: torch.autograd.grad(logits, leaves, dlog,
                                        retain_graph=True),
            lambda: torch.autograd.grad(want_out, leaves, dlog,
@@ -665,7 +748,9 @@ def mega_work(dec, B: int, k: int, Henc: int, steps: int, inputs,
 def check_mega(params, cfg, dev, record: Recorder,
                name: str = "beam_mega") -> None:
     """Phase 3, kernel #15 (row `name`: "beam_mega" for the flagship's
-    LSTM decoder, "beam_mega_gru" for the `-gru` flagship's GRU decoder)
+    LSTM decoder, "beam_mega_gru" for the `-gru` flagship's GRU decoder,
+    "beam_mega_deep" for deep_cfg's two-layer decoder with its 1280-wide
+    LM cell, SimpleProjection and ind_softmax)
     at the flagship widths on the model's encoder output for 512-frame
     utterances (64 frames), 120 steps: B=1 k=4, B=2 k=4 with unequal
     lengths, B=1 k=16, B=2 k=1 and an <eos>-rigged B=2 k=4 (the output
@@ -683,10 +768,11 @@ def check_mega(params, cfg, dev, record: Recorder,
             [8 * MEGA_T, 300], device=dev))
     depth = cfg.num_layers["char"]
     enc, enc_lens = states[depth].contiguous(), lens[depth]
-    rigged = dict(dec, output_proj={
-        "kernel": torch.zeros_like(dec["output_proj"]["kernel"]),
-        "bias": torch.zeros_like(dec["output_proj"]["bias"])})
-    rigged["output_proj"]["bias"][EOS_ID] = 50.0
+    out_key = "output_proj_ind" if dcfg.ind_softmax else "output_proj"
+    rigged = dict(dec, **{out_key: {
+        "kernel": torch.zeros_like(dec[out_key]["kernel"]),
+        "bias": torch.zeros_like(dec[out_key]["bias"])}})
+    rigged[out_key]["bias"][EOS_ID] = 50.0
     worst, parted, steps_run = 0.0, 0, {}
     for case, B, k, p in (("b1_k4", 1, 4, dec), ("b2_k4", 2, 4, dec),
                           ("b1_k16", 1, 16, dec), ("b2_k1", 2, 1, dec),
@@ -946,89 +1032,59 @@ def check_gru_kernels(params, cfg, dev, record: Recorder) -> None:
           "comparison only", flush=True)
 
 
-def check_dec_train_gru(params, cfg, dev, record: Recorder) -> None:
-    """Phase 3, kernel #10 at the GRU step's own shapes: B=128, 47 steps,
-    the char decoder (V=40) on 48 encoder frames and the phone decoder
-    (V=46) on encoder layer 3's 96, scheduled sampling on every other step
-    and dropout."""
-    rng = np.random.default_rng(14)
-    H = cfg.encoder.hidden_size
-    B, S = TRAIN_B, TRAIN_L - 1
-    for task, Te, suffix in (("char", TRAIN_T // 8, ""),
-                             ("phone", TRAIN_T // 4, "_phone")):
-        dec, dcfg = params[f"decoder_{task}"], cfg.decoders[task]
-        rand = lambda *s, scale=1.0: torch.tensor(  # noqa: E731
-            rng.normal(size=s).astype(np.float32) * scale, device=dev)
-        enc = rand(B, Te, 2 * H, scale=0.5)
-        enc_lens = torch.tensor(rng.integers(Te // 2, Te + 1, size=B),
-                                device=dev)
-        enc_lens[0] = Te
-        ids = torch.tensor(rng.integers(3, dcfg.vocab_size, size=(S + 1, B)),
-                           device=dev)
-        gen = torch.Generator(device=dev).manual_seed(14)
-        _, gumbel, lm_masks, _ = attn_decoder.train_noise(gen, dcfg, S, B,
-                                                          dev)
-        flags = (torch.arange(S, device=dev) % 2).float()
-        M, G = dcfg.emb_size, dcfg.lm_hidden_size
-        lm = dec["lm_cell"]
-        with torch.no_grad():
-            x = dec["embedding"][ids][:S]
-            tgx = x @ lm["gates"]["kernel"][:M] + lm["gates"]["bias"]
-            tcx = x @ lm["candidate"]["kernel"][:M] + lm["candidate"]["bias"]
-            weights = [w.contiguous() for w in dec_train_gru.weight_args(
-                dec, M)]
-            hf = enc @ dec["attn_w"]
-        amask = (torch.arange(Te, device=dev)[None, :]
-                 < enc_lens[:, None]).float()
-        gum_sh = torch.cat([gumbel.new_zeros(1, B, dcfg.vocab_size),
-                            gumbel[:-1]])
-        flag_sh = torch.cat([flags.new_zeros(1), flags[:-1]])[:, None].expand(
-            S, B).contiguous()
-        leaves = [t.detach().requires_grad_(True)
-                  for t in (*weights, hf, enc, tgx, tcx)]
-        args = (leaves[:19], *leaves[19:21], amask, *leaves[21:], gum_sh,
-                flag_sh, lm_masks)
-        logits = dec_train_gru.dec_train_gru(*args)
-        tokens = dec_train.sampled_tokens(logits.detach(), gum_sh)
-        with torch.no_grad():
-            free = dec_train_gru.dec_train_gru_reference(*args)
-        parted = near_tie_partings(f"dec_train_gru {task}", free, tokens,
-                                   gum_sh, flag_sh)
-
-        def plain():
-            return dec_train_gru.dec_train_gru_reference(*args,
-                                                         sampled=tokens)
-
-        D, E, A, V = (dcfg.hidden_size_dec, 2 * H, dcfg.attention_vec_size,
-                      dcfg.vocab_size)
-        products = (G * 2 * G + G * G + (G + E) * M + (M + D) * 2 * D
-                    + M * D + D * D + D * A + (D + E) * D + D * V)
-        attn = Te * A * 3 + Te * E * 2
-        inputs = nbytes(*leaves, amask, gum_sh, flag_sh, lm_masks)
-        src = "e2e_asr_tpu_torch/csrc/dec_train_gru.cu"
-        pallas = "e2e_asr_tpu/ops/dec_train_gru_pallas.py"
-        with torch.no_grad():
-            record(f"dec_train_gru_fwd{suffix}", src, f"{pallas}:323",
-                   [logits.detach()], [plain()],
-                   lambda: dec_train_gru.dec_train_gru(*args), plain, 5, 2,
-                   (S * B * (2 * products + attn), inputs + nbytes(logits)),
-                   near_tie_rows=parted)
-        dlog = rand(S, B, V)
-        got = torch.autograd.grad(logits, leaves, dlog, retain_graph=True)
-        want_out = plain()
-        want = torch.autograd.grad(want_out, leaves, dlog, retain_graph=True)
-        # The data gradients, then the weight gradients: twice the
-        # forward's products and about three times its attention work,
-        # reading the forward's saves (6G + M + 6D + A + Te + E + V floats
-        # a row and step).
-        saves = S * B * 4 * (6 * G + M + 6 * D + A + Te + E + V)
-        record(f"dec_train_gru_bwd{suffix}", src, f"{pallas}:613", got, want,
-               lambda: torch.autograd.grad(logits, leaves, dlog,
-                                           retain_graph=True),
-               lambda: torch.autograd.grad(want_out, leaves, dlog,
-                                           retain_graph=True), 5, 2,
-               (S * B * (4 * products + 3 * attn),
-                inputs + nbytes(dlog, *got) + saves))
+def check_wide_lstm(params, cfg, dev, record: Recorder) -> None:
+    """Phase 3, kernel #4 (inference, masked and training forms) and #5's
+    wide form at the LM task's shape over deep_cfg's LM cell (B=128,
+    T=120, lengths 24-120, H=1280), beside cuDNN's unidirectional nn.LSTM;
+    #5's wide form with its kernel and the dW matmul beside it timed
+    apart."""
+    rng = np.random.default_rng(16)
+    dec, dcfg = params["decoder_char"], cfg.decoders["char"]
+    T, B, H, E = LM_T, LM_B, dcfg.lm_hidden_size, dcfg.emb_size
+    ids, lens, _ = lm_batch(rng, B, dcfg.vocab_size)
+    lm = dec["lm_cell"]
+    with torch.no_grad():
+        emb_in = dec["embedding"][torch.tensor(ids[:-1], device=dev).long()]
+        xp = cells.lstm_precompute_inputs(lm, emb_in, E).contiguous()
+    w = lm["kernel"][E:]
+    mask = (torch.arange(T, device=dev)[:, None] < torch.tensor(
+        lens, device=dev)[None, :]).float()[:, :, None]
+    lens_cpu = torch.tensor(lens)
+    ops = T * B * 2 * H * 4 * H            # one [H, 4H] product a row-step
+    src = "e2e_asr_tpu_torch/csrc/lstm_seq_wide.cu"
+    chunked = "e2e_asr_tpu/ops/lstm_pallas.py:353"
+    cudnn = lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, False)  # noqa
+    with torch.no_grad():
+        for name, m in (("lstm_seq_wide", None),
+                        ("lstm_seq_wide_masked", mask)):
+            got = [lstm_seq.lstm_seq(xp, w, m)]
+            record(name, src, chunked, got,
+                   [lstm_seq.lstm_seq_reference(xp, w, m)],
+                   lambda m=m: lstm_seq.lstm_seq(xp, w, m),
+                   lambda m=m: lstm_seq.lstm_seq_reference(xp, w, m), 5, 1,
+                   (ops, nbytes(xp, w, m, *got)), cudnn)
+        fwd = lstm_seq.lstm_seq_train(xp, w)
+        record("lstm_seq_wide_train", src, chunked, fwd,
+               lstm_seq.lstm_seq_reference(xp, w, save_c=True),
+               lambda: lstm_seq.lstm_seq_train(xp, w),
+               lambda: lstm_seq.lstm_seq_reference(xp, w, save_c=True), 5,
+               1, (ops, nbytes(xp, w, *fwd)), cudnn)
+    h, c = fwd
+    g = torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32),
+                     device=dev)
+    bw_args = (w, h, c, xp, g)
+    got = lstm_seq.lstm_bwd_wide(*bw_args)
+    kernel_ms = time_ms(lambda: lstm_seq.lstm_bwd_wide_dx(*bw_args), 5)
+    dw_ms = time_ms(lambda: lstm_seq.wide_dw(h, got[0]), 5)
+    # Gates recompute, dh_{t-1} and dW_h: three [H, 4H] products a
+    # row-step; ms is the kernel and the dW matmul together.
+    record("lstm_bwd_wide", src, "e2e_asr_tpu/ops/lstm_pallas.py:975", got,
+           lstm_bidir.lstm_bwd_reference(*bw_args),
+           lambda: lstm_seq.lstm_bwd_wide(*bw_args),
+           lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 5, 1,
+           (3 * ops, nbytes(*bw_args, *got)),
+           lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True),
+           kernel_ms=kernel_ms, dw_matmul_ms=dw_ms)
 
 
 def check_cells_gru(params, cfg, dev, record: Recorder) -> None:
@@ -1311,7 +1367,16 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "attn_output_fused": (attn_output, "LAUNCHES"),
             "transducer_fwd": (rnnt_kernel, "FWD_LAUNCHES"),
             "transducer_bwd": (rnnt_kernel, "BWD_LAUNCHES"),
-            "ctc_prefix": (ctc_prefix, "LAUNCHES")}
+            "ctc_prefix": (ctc_prefix, "LAUNCHES"),
+            "lstm_seq_wide": (lstm_seq, "WIDE_LAUNCHES"),
+            "lstm_seq_wide_masked": (lstm_seq, "WIDE_MASKED_LAUNCHES"),
+            "lstm_seq_wide_train": (lstm_seq, "WIDE_TRAIN_LAUNCHES"),
+            "lstm_bwd_wide": (lstm_seq, "WIDE_BWD_LAUNCHES"),
+            "dec_train_fwd_deep": (dec_train, "FWD_LAUNCHES"),
+            "dec_train_bwd_deep": (dec_train, "BWD_LAUNCHES"),
+            "dec_train_gru_fwd_deep": (dec_train_gru, "FWD_LAUNCHES"),
+            "dec_train_gru_bwd_deep": (dec_train_gru, "BWD_LAUNCHES"),
+            "beam_mega_deep": (beam_mega, "LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1352,6 +1417,12 @@ CTC_PATH = ("lstm_bidir_train", "lstm_bidir_bwd")
 CTC_RECIPE_PATH = CTC_PATH + ("lstm_bidir",)
 JOINT_PATH = ("lstm_bidir", "cells_fused", "output_fused", "beam_select",
               "ctc_prefix")
+# deep_cfg's LM cell (1280 wide) trains on #4's training form and #5's
+# wide form, never on #3 or #5; its decoders' rows (#8/#9, #10 deep) share
+# the flagship rows' counters, and dec_train.DEPTHS tells the depths apart.
+DEEP_LM_PATH = ("lstm_seq_wide_train", "lstm_bwd_wide")
+DEEP_RECIPE_PATH = TRAIN_PATH + DEEP_LM_PATH + ("lstm_bidir", "cells_fused",
+                                                "output_fused")
 
 
 def decode_rows(gru_decoder: bool) -> tuple[str, str]:
@@ -1363,6 +1434,8 @@ def decode_rows(gru_decoder: bool) -> tuple[str, str]:
 def zero_launches() -> None:
     for module, counter in COUNTERS.values():
         setattr(module, counter, 0)
+    dec_train.DEPTHS.clear()
+    dec_train_gru.DEPTHS.clear()
 
 
 def read_launches(path: str, required) -> dict:
@@ -1502,7 +1575,8 @@ def train(cfg, dev, card: str, path=None, label: str = "training") -> dict:
 
 
 TIED = ("decoder_char/lm_cell/", "decoder_char/output_proj/",
-        "decoder_char/embedding")   # the leaves the LM shares
+        "decoder_char/embedding",   # the leaves the LM shares, and
+        "decoder_char/simple_proj/")  # SimpleProjection where there is one
 
 
 def compare_lm_step(cfg, dev, lm_cfg) -> None:
@@ -1553,13 +1627,17 @@ def timed_steps(run, n: int) -> tuple[list, list]:
     return losses, times
 
 
-def train_lm_multitask(dev, card) -> dict:
+def train_lm_multitask(dev, card, cfg=None, lm_path=LM_PATH,
+                       label: str = "LM and multitask") -> dict:
     """Phase 5 (LM, multitask): (a) lm_step card vs CPU; (b) three
-    asr_steps of the char + phone model at B=128, T=384, L=48 and three
-    lm_steps at B=128, T=120, counted from zero; (c) their times. Returns
-    the launches of (b)."""
-    cfg = flagship_cfg(40, PHONE_VOCAB)
-    lm_cfg = LMConfig(vocab_size=40)
+    asr_steps of the char + phone model (the flagship's, or `cfg`) at
+    B=128, T=384, L=48 and three lm_steps at B=128, T=120, counted from
+    zero: the kernels of TRAIN_PATH and `lm_path` launched, #8/#9 by both
+    decoders every step at each decoder's depth (dec_train.DEPTHS); (c)
+    their times. Returns the launches of (b)."""
+    cfg = cfg or flagship_cfg(40, PHONE_VOCAB)
+    lm_cfg = LMConfig(vocab_size=40,
+                      lm_hidden_size=cfg.decoders["char"].lm_hidden_size)
     compare_lm_step(cfg, dev, lm_cfg)
     params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
     asr_step, lm_step = step.make_train_step(cfg, lm_cfg, device=dev)
@@ -1582,22 +1660,33 @@ def train_lm_multitask(dev, card) -> dict:
     zero_launches()
     asr_losses, asr_times = timed_steps(one_asr, 3)
     lm_losses, lm_times = timed_steps(one_lm, 3)
-    launches = read_launches("LM and multitask", TRAIN_PATH + LM_PATH)
+    launches = read_launches(label, TRAIN_PATH + lm_path)
     state = holder["state"]
     if not (all(np.isfinite(asr_losses + lm_losses))
             and int(state.global_step) == 3
             and int(state.lm_global_step) == 3):
         fail(f"multitask losses {asr_losses}, LM losses {lm_losses}")
-    if (launches["dec_train_fwd"], launches["dec_train_bwd"]) != (6, 6):
-        fail("the char and phone decoders did not both run kernels #8/#9 "
-             "every step")
+    depths = {}
+    for task in cfg.tasks:
+        layers = cfg.decoders[task].num_layers_dec
+        depths[layers] = depths.get(layers, 0) + 3
+    print(f"{label}: #8 launches by decoder depth {dec_train.DEPTHS}",
+          flush=True)
+    if ((launches["dec_train_fwd"], launches["dec_train_bwd"]) != (6, 6)
+            or dec_train.DEPTHS != depths):
+        fail(f"the char and phone decoders did not both run kernels #8/#9 "
+             f"every step at their depths {depths}")
+    if lm_path != LM_PATH and any(launches[k] for k in LM_PATH):
+        fail(f"{label}: the LM step launched #3 or #5 at H="
+             f"{lm_cfg.lm_hidden_size}")
     frames, tokens = int(batch["logmel_len"].sum()), int(lens.sum())
     asr_s, lm_s = float(np.mean(asr_times[1:])), float(np.mean(lm_times[1:]))
-    print(f"multitask (char + phone) B={TRAIN_B} T={TRAIN_T} L={TRAIN_L} "
-          f"({card}): losses {asr_losses}; step times "
+    print(f"{label}: multitask (char + phone) B={TRAIN_B} T={TRAIN_T} "
+          f"L={TRAIN_L} ({card}): losses {asr_losses}; step times "
           f"{[round(t * 1e3, 2) for t in asr_times]} ms; steady step "
           f"{asr_s * 1e3:.2f} ms, {frames / asr_s:.0f} frames/s", flush=True)
-    print(f"LM B={LM_B} T={LM_T} ({card}): losses {lm_losses}; step times "
+    print(f"{label}: LM B={LM_B} T={LM_T} H={lm_cfg.lm_hidden_size} "
+          f"({card}): losses {lm_losses}; step times "
           f"{[round(t * 1e3, 2) for t in lm_times]} ms; steady step "
           f"{lm_s * 1e3:.2f} ms, {tokens / lm_s:.0f} tokens/s", flush=True)
     return launches
@@ -1606,13 +1695,14 @@ def train_lm_multitask(dev, card) -> dict:
 def recipe(dev, card, cells: str = "lstm") -> dict:
     """Phase 6: train a synthetic corpus at the flagship shape with the
     port's Trainer, evaluate, save, and resume in a second Trainer
-    (`cells` as flagship_cfg's, or "transducer", "ctc" or "hybrid",
-    transducer_cfg's, ctc_cfg's or hybrid_cfg's; all but "lstm" and
-    "gru_encoder" train without the LM task, which a GRU char decoder, the
-    transducer and the CTC family do not have). With GRU cells, then also evaluate
-    the trained model on the dev set through BeamEvaluator (beam 4) at a
-    batch of 1 (one #15 launch per utterance) and, with GRU decoders, at a
-    batch of 64 (the per-step route). Returns the launches of each run."""
+    (`cells` as flagship_cfg's, or "transducer", "ctc", "hybrid" or
+    "deep", transducer_cfg's, ctc_cfg's, hybrid_cfg's or deep_cfg's; all
+    but "lstm", "gru_encoder" and "deep" train without the LM task, which
+    a GRU char decoder, the transducer and the CTC family do not have).
+    With GRU cells, then also evaluate the trained model on the dev set
+    through BeamEvaluator (beam 4) at a batch of 1 (one #15 launch per
+    utterance) and, with GRU decoders, at a batch of 64 (the per-step
+    route). Returns the launches of each run."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.monotonic()
         sizes = synth.make_vocab_dir(os.path.join(root, "vocab"))
@@ -1636,12 +1726,14 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             vocab_dir=os.path.join(root, "vocab"),
             train_dir=os.path.join(root, "train"),
             best_model_dir=os.path.join(root, "best"),
-            lm_prob=0.5 if cells in ("lstm", "gru_encoder") else 0.0,
+            lm_prob=0.5 if cells in ("lstm", "gru_encoder", "deep") else 0.0,
             steps_per_checkpoint=3, compute_dtype="float32")
         models = {"transducer": lambda: transducer_cfg(sizes["char"]),
                   "ctc": lambda: ctc_cfg(sizes["char"]),
                   "hybrid": lambda: hybrid_cfg(sizes["char"],
-                                               sizes["phone"])}
+                                               sizes["phone"]),
+                  "deep": lambda: deep_cfg("lstm", sizes["char"],
+                                           sizes["phone"])}
         cfg = ExperimentConfig(
             model=models.get(cells, lambda: flagship_cfg(
                 sizes["char"], sizes["phone"], cells))(),
@@ -1669,7 +1761,8 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             "gru": GRU_RECIPE_PATH, "transducer": TRANSDUCER_RECIPE_PATH,
             "ctc": CTC_RECIPE_PATH,
             "hybrid": TRAIN_PATH + ("lstm_bidir", "cells_fused",
-                                    "output_fused")}[cells])}
+                                    "output_fused"),
+            "deep": DEEP_RECIPE_PATH}[cells])}
         if cells in ("transducer", "ctc") and any(runs[name][k]
                                                   for k in ATTENTION_DECODE):
             fail(f"{name} launched an attention-decoder kernel")
@@ -2463,6 +2556,118 @@ def ctc_families(dev, card, rev_vocab) -> dict:
     return paths
 
 
+DEEP_FLAGS = ["-num_layers_dec", "2", "-lm_hsize", str(WIDE_LM),
+              "-ind_softmax"]
+
+
+def deep_entry_points(dev, card) -> dict:
+    """Phase 13d: the command line with DEEP_FLAGS at the flagship widths
+    on phase 7's corpus shape (64 training, 8 dev, 8 test utterances),
+    for LSTM cells and `-gru`: `cli.main` trains 2 steps (greedy dev
+    evaluation, save) in its char_dec_dep_2_ run directory; `-dev
+    -beam_size 4 -buck_batch_sizes 1`: one #15 launch per utterance and no
+    per-step kernel; `-test -beam_size 4` at a batch of 64: the per-step
+    route and no #15. Returns the launches of each run."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        vocab, data = os.path.join(root, "vocab"), os.path.join(root, "data")
+        synth.make_vocab_dir(vocab)
+        os.makedirs(data)
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        for name, n, seed in (("train_1k.0.0001", 64, 3), ("dev.0001", 8, 4),
+                              ("eval2000.0001", 8, 5)):
+            synth.write_speech_corpus(os.path.join(data, name), n, seed=seed,
+                                      **utt)
+        base = ["-data_dir", data, "-vocab_dir", vocab, "-tb_dir",
+                os.path.join(root, "models"), "-steps_per_checkpoint", "2",
+                "-max_epochs", "0", "-compute_dtype", "float32", *DEEP_FLAGS]
+        for cells, extra in (("lstm", []), ("gru", ["-gru"])):
+            argv = base + extra
+            opts = cli.parse_options(argv + ["-dev"])
+            best, train_dir = opts.train.best_model_dir, opts.train.train_dir
+            if "char_dec_dep_2_" not in train_dir:
+                fail(f"the deep run directory is {train_dir}")
+            gru = cells == "gru"
+            enc = ("gru_bidir",) if gru else ("lstm_bidir",)
+            cells_row, mega = decode_rows(gru)
+            per_step = (cells_row, "output_fused", "beam_select")
+            train_path = GRU_TRAIN_PATH if gru else TRAIN_PATH
+            label = f"cli deep {cells}"
+            for name, flags, required, forbidden, n_mega in (
+                    ("train", ["-buck_batch_sizes", "32"],
+                     train_path + enc + (cells_row, "output_fused"),
+                     (mega,), 0),
+                    ("-dev beam 4 batch 1", ["-dev", "-beam_size", "4",
+                                             "-buck_batch_sizes", "1"],
+                     enc + (mega,), per_step, 8),
+                    ("-test beam 4", ["-test", "-beam_size", "4"],
+                     enc + per_step, (mega,), 0)):
+                zero_launches()
+                t0 = time.monotonic()
+                cli.main(argv + flags)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                counts = read_launches(f"{label} {name}", required)
+                if any(counts[k] for k in forbidden) or counts[mega] != n_mega:
+                    fail(f"{label} {name}: {counts[mega]} #15 launches, not "
+                         f"{n_mega}, or a kernel of {forbidden} launched")
+                if name == "train":
+                    depths = (dec_train_gru if gru else dec_train).DEPTHS
+                    if set(depths) != {2}:      # the char decoder alone
+                        fail(f"{label} train: decoder depths {depths}")
+                    if not checkpoint.latest_path(train_dir):
+                        fail(f"{label} train wrote no checkpoint")
+                else:
+                    with open(os.path.join(best, "raw_4.txt")) as f:
+                        if len(f.read().splitlines()) != 8:
+                            fail(f"{label} {name}: not 8 hypotheses")
+                print(f"{label} {name} ({card}): wall {wall:.3f} s",
+                      flush=True)
+                runs[f"{label} {name}"] = counts
+    return runs
+
+
+def deep_decoders(dev, card, rev_vocab) -> dict:
+    """Phase 13: deep_cfg (the char decoder two layers deep, 1280-wide LM
+    cells through SimpleProjection, ind_softmax). (a) one char + phone
+    asr_step at B=16 on the card and on the CPU, LSTM and `-gru`, and one
+    LM step at H=1280, must agree (phase 5's tolerances); (b) three
+    asr_steps at B=128, T=384, L=48 and three LM steps at B=128, T=120:
+    every loss finite, #4's training form, #5's wide form and #8/#9 at
+    depths 2 (char) and 1 (phone) launched, #3 and #5 not; their times,
+    frames/s and tokens/s; the step's device split (tools/prof_port.py);
+    (c) the Trainer on phase 6's corpus with the LM task, and its resume;
+    (d) the command line (deep_entry_points); (e) phase 4's serving burst
+    on the deep model, and one batch decoded on the card equal to the
+    CPU's up to near-ties. Returns the launches of each main-path run."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import prof_port
+    paths = {}
+    cfg = deep_cfg()
+    shapes = step.init_params(torch.Generator(), cfg, device="meta")
+    print(f"deep model: {seq2seq.param_count(shapes)} parameters")
+    lm_cfg = LMConfig(vocab_size=40, lm_hidden_size=WIDE_LM)
+    compare_train_step(cfg, dev, lm_cfg)
+    compare_train_step(deep_cfg("gru"), dev, lm_cfg)
+    paths["deep"] = train_lm_multitask(dev, card, cfg, DEEP_LM_PATH,
+                                       "deep decoders")
+    prof_port.profile_train(cfg, dev, "deep_step")
+    paths.update(recipe(dev, card, "deep"))
+    paths.update(deep_entry_points(dev, card))
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    with torch.no_grad():
+        zero_launches()
+        feats, texts, stats = serve(params, cfg, dev, rev_vocab)
+        paths["serving deep"] = read_launches("serving deep", SERVING_PATH)
+        print(f"serving deep ({card}): {json.dumps(stats)}")
+        if len(texts) != 24 or not all(isinstance(t, str) for t in texts):
+            fail("not every request to the deep model got a transcript")
+        compare_cpu(params, cfg, feats)
+    return paths
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -2501,13 +2706,16 @@ def main() -> int:
     with torch.no_grad():
         check_kernels(params, cfg, dev, record)
     check_train_kernels(params, cfg, dev, record)
+    check_dec_train(params, cfg, dev, record, seed=3)
     check_lm_kernels(params, cfg, dev, record)
     check_mega(params, cfg, dev, record)
     gru_cfg = flagship_cfg(40, PHONE_VOCAB, "gru")
     gru_params = seq2seq.init(torch.Generator().manual_seed(0), gru_cfg,
                               device=dev)
     check_gru_kernels(gru_params, gru_cfg, dev, record)
-    check_dec_train_gru(gru_params, gru_cfg, dev, record)
+    check_dec_train(gru_params, gru_cfg, dev, record, seed=14)
+    check_dec_train(gru_params, gru_cfg, dev, record, seed=14, task="phone",
+                    suffix="_phone")
     with torch.no_grad():
         check_cells_gru(gru_params, gru_cfg, dev, record)
         check_attn_output(params, cfg, gru_params, gru_cfg, dev, record)
@@ -2516,6 +2724,16 @@ def main() -> int:
     with torch.no_grad():
         check_transducer_kernels(dev, record)
         check_ctc_prefix(dev, record)
+    deep = {cells: deep_cfg(cells) for cells in ("lstm", "gru")}
+    for cells, dcfg in deep.items():
+        dparams = seq2seq.init(torch.Generator().manual_seed(0), dcfg,
+                               device=dev)
+        if cells == "lstm":
+            check_wide_lstm(dparams, dcfg, dev, record)
+            check_mega(dparams, dcfg, dev, record, "beam_mega_deep")
+        check_dec_train(dparams, dcfg, dev, record, seed=15,
+                        suffix="_deep")
+    del dparams
 
     # 4. serving
     rev_vocab = START_VOCAB + ["<sp>"] + [chr(ord("a") + i)
@@ -2577,6 +2795,11 @@ def main() -> int:
     # family (-ctc_weight 0.3, decoded by joint beams on #16): steps,
     # Trainers, the command line, serving
     paths.update(ctc_families(dev, card, rev_vocab))
+
+    # 13. the deep decoders (-num_layers_dec 2 -lm_hsize 1280
+    # -ind_softmax): steps card vs CPU and at full size with the LM task on
+    # #4, the Trainer, the command line (LSTM and -gru), serving
+    paths.update(deep_decoders(dev, card, rev_vocab))
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f}"

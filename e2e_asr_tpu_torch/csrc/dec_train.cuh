@@ -138,7 +138,6 @@ struct WJob {
   int k1, shift1;
   const float* x2;
   int k2, shift2;
-  bool ones;
   const float* g;
   int n, rows;
   float* out;
@@ -146,10 +145,17 @@ struct WJob {
 
 constexpr int kWT = 64, kWD = 16;
 
+// Stacked decoder cells a training kernel takes (the inference kernels'
+// cap, dec_step.cu), and the most weight-gradient jobs of a backward: 13
+// fixed, 5 a GRU layer (2 an LSTM layer above the first), 2 for
+// SimpleProjection.
+constexpr int kMaxLayers = 8;
+constexpr int kMaxJobs = 13 + 5 * kMaxLayers + 2;
+
 __device__ __forceinline__ float wjob_x(const WJob& j, int r, int k) {
   if (k < j.k1) {
-    if (j.ones) return 1.f;
-    if (j.x1 == nullptr || r < j.shift1) return 0.f;
+    if (j.x1 == nullptr) return 1.f;
+    if (r < j.shift1) return 0.f;
     return __ldcg(j.x1 + static_cast<size_t>(r - j.shift1) * j.k1 + k);
   }
   if (r < j.shift2) return 0.f;

@@ -1,24 +1,36 @@
-"""Kernel #3: the forward of a unidirectional LSTM over a sequence
-(`csrc/lstm_seq.cu`), with its backward on kernel #5
-(`lstm_bidir.lstm_bwd`, `csrc/lstm_bidir_bwd.cu`).
+"""Kernels #3 and #4: the forward of a unidirectional LSTM over a sequence
+(`csrc/lstm_seq.cu` up to H = 1024, `csrc/lstm_seq_wide.cu` above), with
+its backward on kernel #5 (`lstm_bidir.lstm_bwd`, `csrc/lstm_bidir_bwd.cu`,
+up to H = 1024) or #5's wide form (`lstm_bwd_wide`, in
+`csrc/lstm_seq_wide.cu`). The route is chosen by H alone (`WIDE`).
 
 Replaces: e2e_asr_tpu/ops/lstm_pallas.py `_fwd_seq` through its entries
-`lstm_seq` and `lstm_seq_masked` (without in-kernel dropout), and the
-residual-saving training form `_lstm_seq_fwd`, which also writes c.
+`lstm_seq` and `lstm_seq_masked` (without in-kernel dropout), the
+residual-saving training form `_lstm_seq_fwd`, which also writes c, and
+`_fwd_seq_chunked`, the form `_fwd_seq` takes when W_h cannot stay resident
+(the JAX package takes it at H = 1280 for B = 16 and 128); and `_bwd_seq`
+with `emit_dw=False`, the backward it takes there, whose dW_h is one
+matmul outside the kernel.
 
-Bound on the H100: the recurrence, as kernel A's. Each of the T steps
-needs the whole previous h, and every step reads all of W_h ([256, 1024]
-f32 = 1 MiB at the LM's width) from L2, since it exceeds a block's shared
-memory.
+Bound on the H100: the recurrence. Each of the T steps needs the whole
+previous h, and every step reads all of W_h ([256, 1024] f32 = 1 MiB at
+the flagship LM's width, 26.2 MB at H = 1280) from L2.
 
-Design: kernel A's chain for one direction (`csrc/lstm_fwd.cuh`): one
-block per batch row, the time loop inside the block, h in shared memory and
-c in registers. At the LM task's B=128 the 128 chains fit one wave on the
-132 SMs.
+Design: #3 is kernel A's chain for one direction (`csrc/lstm_fwd.cuh`):
+one block per batch row, the time loop inside the block, h in shared memory
+and c in registers; at the LM task's B=128 the 128 chains fit one wave on
+the 132 SMs. It caps H at 1024 (a block's threads). #4 is one persistent
+cooperative launch over all steps: each tile owns 8 hidden units and their
+four gate columns for 128 rows, streams those W_h columns and h_{t-1}
+through shared memory (double-buffered), and updates the cell in place; a
+grid barrier between steps. #5's wide form recomputes the gates of every
+step in one pass, then walks time in reverse: dh_{t-1} = dgates_t W_h^T
+split by gate into four partial sums, then step t-1's cell backward, two
+grid barriers a step. Both take H in multiples of 32.
 
 Autograd: `lstm_seq` on inputs that need a gradient runs the training form
-inside `_LSTMSeq`, whose backward is kernel #5 on the card and
-`lstm_bwd_reference` on the CPU (both through `lstm_bidir.lstm_bwd`).
+inside `_LSTMSeq`, whose backward is kernel #5 or its wide form on the card
+and `lstm_bwd_reference` on the CPU.
 """
 from __future__ import annotations
 
@@ -27,9 +39,14 @@ import torch
 from e2e_asr_tpu_torch.core.cells import _lstm_apply_gates
 from e2e_asr_tpu_torch.kernels import build, lstm_bidir
 
+WIDE = 1024            # the widest H of #3 and #5; wider takes #4 and #5-wide
 LAUNCHES = 0           # inference form without a mask (lstm_seq)
 MASKED_LAUNCHES = 0    # inference form with the carry mask (lstm_seq_masked)
 TRAIN_LAUNCHES = 0     # training form (also writes c), with or without mask
+WIDE_LAUNCHES = 0          # #4, the same three forms
+WIDE_MASKED_LAUNCHES = 0
+WIDE_TRAIN_LAUNCHES = 0
+WIDE_BWD_LAUNCHES = 0      # #5's wide form
 
 
 def lstm_seq_reference(x_proj, w_h, mask=None, save_c: bool = False):
@@ -67,28 +84,93 @@ def _launch(x_proj, w_h, mask, save_c: bool) -> torch.Tensor:
         build.require(mask, "mask", f32, (T, B, 1), dev)
     out = torch.empty(2 if save_c else 1, T, B, H, device=dev)
     lib = build.library()
+    mask_ptr = None if mask is None else mask.data_ptr()
     with torch.cuda.device(dev):
-        err = lib.e2e_lstm_seq_fwd(
-            x_proj.data_ptr(), w_h.data_ptr(),
-            None if mask is None else mask.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr() if save_c else None, T, B, H,
-            build.stream_ptr(dev))
-    build.check(err, "lstm_seq")
+        if H > WIDE:
+            _check_wide(H)
+            c = out[1] if save_c else torch.empty(B, H, device=dev)
+            err = lib.e2e_lstm_wide_fwd(
+                x_proj.data_ptr(), w_h.data_ptr(), mask_ptr,
+                out[0].data_ptr(), c.data_ptr(), int(save_c), T, B, H,
+                build.stream_ptr(dev))
+        else:
+            err = lib.e2e_lstm_seq_fwd(
+                x_proj.data_ptr(), w_h.data_ptr(), mask_ptr,
+                out[0].data_ptr(), out[1].data_ptr() if save_c else None, T,
+                B, H, build.stream_ptr(dev))
+    build.check(err, "lstm_seq_wide" if H > WIDE else "lstm_seq")
     return out
+
+
+def _check_wide(H: int) -> None:
+    """#4 and #5's wide form load whole groups of 32 units (as the JAX
+    package's chunked forward needs H to split into tiles of 8 or more)."""
+    if H % 32:
+        raise ValueError(f"lstm_seq: H={H} > {WIDE} takes kernels #4 and #5's "
+                         "wide form, which need H to be a multiple of 32")
+
+
+def _count(H: int, form: str) -> None:
+    """One launch of `form` ("", "MASKED_" or "TRAIN_") on #3 or #4."""
+    name = ("WIDE_" if H > WIDE else "") + form + "LAUNCHES"
+    globals()[name] += 1
+
+
+def lstm_bwd_wide(w_h, h, c, x_proj, g, mask=None):
+    """The backward of one direction for H > WIDE (the function of
+    lstm_pallas._bwd_seq with emit_dw=False) -> (dx_proj [T,B,4H], dw_h
+    [H,4H]): dx_proj from #5's wide form, dw_h = sum over t of h_{t-1}^T
+    dx_proj[t] as one matmul outside the kernel. Its plain version (CPU
+    tensors) is lstm_bidir.lstm_bwd_reference."""
+    if h.device.type == "cpu":
+        return lstm_bidir.lstm_bwd_reference(w_h, h, c, x_proj, g, mask)
+    dx = lstm_bwd_wide_dx(w_h, h, c, x_proj, g, mask)
+    return dx, wide_dw(h, dx)
+
+
+def lstm_bwd_wide_dx(w_h, h, c, x_proj, g, mask=None):
+    """One launch of #5's wide form on CUDA tensors: dx_proj [T,B,4H]."""
+    global WIDE_BWD_LAUNCHES
+    if h.device.type != "cuda":
+        raise ValueError(f"lstm_bwd_wide: unsupported device {h.device}")
+    dev = h.device
+    T, B, H = lstm_bidir._check_bwd(w_h, h, c, x_proj, g, mask, dev,
+                                    "lstm_bwd_wide")
+    _check_wide(H)
+    dx = torch.empty(T, B, 4 * H, device=dev)
+    dc, dht = torch.empty(B, H, device=dev), torch.empty(B, H, device=dev)
+    part = torch.empty(4, B, H, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.e2e_lstm_wide_bwd(
+            w_h.data_ptr(), h.data_ptr(), c.data_ptr(), x_proj.data_ptr(),
+            g.data_ptr(), None if mask is None else mask.data_ptr(),
+            dx.data_ptr(), dc.data_ptr(), dht.data_ptr(), part.data_ptr(), T,
+            B, H, build.stream_ptr(dev))
+    build.check(err, "lstm_bwd_wide")
+    WIDE_BWD_LAUNCHES += 1
+    return dx
+
+
+def wide_dw(h, dx):
+    """dW_h of #5's wide form: h_{t-1}^T dgates_t summed over t, one
+    matmul over the (T-1)*B rows (h_{-1} is zero)."""
+    T, B, H = h.shape
+    return h[:-1].reshape(-1, H).t() @ dx[1:].reshape(-1, 4 * H)
 
 
 def lstm_seq_train(x_proj, w_h, mask=None):
     """The training form: (h, c), each [T,B,H]."""
-    global TRAIN_LAUNCHES
     if x_proj.device.type == "cpu":
         return lstm_seq_reference(x_proj, w_h, mask, save_c=True)
     out = _launch(x_proj, w_h, mask, save_c=True)
-    TRAIN_LAUNCHES += 1
+    _count(w_h.shape[0], "TRAIN_")
     return out[0], out[1]
 
 
 class _LSTMSeq(torch.autograd.Function):
-    """Training forward (saves h and c) with kernel #5 as its backward."""
+    """Training forward (saves h and c) with kernel #5, or its wide form,
+    as its backward."""
 
     @staticmethod
     def forward(ctx, x_proj, w_h, mask):
@@ -99,7 +181,8 @@ class _LSTMSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x_proj, w_h, mask, h, c = ctx.saved_tensors
-        dx, dw = lstm_bidir.lstm_bwd(w_h, h, c, x_proj, g.contiguous(), mask)
+        bwd = lstm_bwd_wide if w_h.shape[0] > WIDE else lstm_bidir.lstm_bwd
+        dx, dw = bwd(w_h, h, c, x_proj, g.contiguous(), mask)
         return dx, dw, None
 
 
@@ -110,10 +193,9 @@ def lstm_seq(x_proj, w_h, mask=None, drop_seed=None,
     unmasked. mask [T,B,1] float or None: steps where it is 0 carry the
     state through (lstm_pallas.lstm_seq_masked). Differentiable in x_proj
     and w_h: when either needs a gradient, the training form runs and kernel
-    #5 gives the gradients. The reference's in-kernel dropout (drop_seed,
-    drop_keep) and bf16 matmuls raise: dropout runs on the output outside
-    the kernel."""
-    global LAUNCHES, MASKED_LAUNCHES
+    #5 (its wide form above WIDE) gives the gradients. The reference's
+    in-kernel dropout (drop_seed, drop_keep) and bf16 matmuls raise:
+    dropout runs on the output outside the kernel."""
     if drop_seed is not None or drop_keep < 1.0 or bf16_matmul:
         raise NotImplementedError(
             "lstm_seq: in-kernel dropout and bf16 matmuls are not ported "
@@ -125,8 +207,5 @@ def lstm_seq(x_proj, w_h, mask=None, drop_seed=None,
     if x_proj.device.type == "cpu":
         return lstm_seq_reference(x_proj, w_h, mask)
     h = _launch(x_proj, w_h, mask, save_c=False)[0]
-    if mask is None:
-        LAUNCHES += 1
-    else:
-        MASKED_LAUNCHES += 1
+    _count(w_h.shape[0], "" if mask is None else "MASKED_")
     return h

@@ -226,7 +226,8 @@ def apply_train(params: dict, cfg: DecoderConfig, dec_inputs: torch.Tensor,
     if dev.type == "cuda":
         fused = dec_train if cfg.use_lstm else dec_train_gru
         return fused.apply_train_fused(params, cfg, emb_inputs, enc_states,
-                                       enc_lens, flags, gumbel, lm_masks)
+                                       enc_lens, flags, gumbel, lm_masks,
+                                       inter_masks)
     ctx = make_attn_context(params, enc_states, enc_lens)
     state = zero_state(cfg, B, ctx)
     lm_input = emb_inputs[0]

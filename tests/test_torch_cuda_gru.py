@@ -175,8 +175,10 @@ def test_dec_train_gru_kernels(cuda, V, sampling):
     g_want = [torch.zeros_like(t) if g is None else g
               for t, g in zip(leaves, torch.autograd.grad(
                   want, leaves, dlog, allow_unused=True))]
-    for name, g, w in zip((*dec_train_gru.W_NAMES, "hf", "enc", "tgx",
-                           "tcx"), g_got, g_want):
+    names = (*dec_train_gru.W_NAMES, *dec_train_gru.LAYER_NAMES, "hf", "enc",
+             "tgx", "tcx")
+    assert len(names) == len(leaves)
+    for name, g, w in zip(names, g_got, g_want):
         scale = max(float(w.abs().max()), 1e-6)
         torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=0,
                                    msg=lambda m, n=name: f"{n}: {m}")

@@ -116,29 +116,35 @@ def test_training_pass_matches_the_pallas_kernel(decoder_case, form):
 
 
 def test_envelope_and_gru_decode_raise(decoder_case):
-    """#10 takes one decoder layer without SimpleProjection (the plain scan
-    takes the rest). A GRU decoder decodes: the greedy decode (kernel B's
-    GRU branch, the attention and kernel C, their plain versions here)
-    gives the argmax ids of the decoder's own step, <pad> after <eos>.
-    (Decoding GRU decoders raised before kernel #11's GRU branch was
-    ported; the test keeps its name.)"""
+    """#10 takes 1 to 8 decoder layers, with or without SimpleProjection:
+    a deeper stack raises ValueError naming its depth, and the fused form
+    of a 2-layer decoder with SimpleProjection equals the plain scan. A GRU
+    decoder decodes: the greedy decode (kernel B's GRU branch, the
+    attention and kernel C, their plain versions here) gives the argmax ids
+    of the decoder's own step, <pad> after <eos>. (Decoding GRU decoders
+    raised before kernel #11's GRU branch was ported, and deep decoders
+    before #10's deep branches; the test keeps its name.)"""
     cfg, named, enc, enc_lens, ids, _, _, _ = decoder_case
     dcfg = cfg.decoders["char"]
     params = checkpoint.params_from_named(named, cfg, "cpu")["decoder_char"]
     emb_in = params["embedding"][torch.tensor(ids).long()]
     e, lens = torch.tensor(enc), torch.tensor(enc_lens)
-    for bad in (dict(params, dec_cells=params["dec_cells"] * 2),
-                dict(params, simple_proj={})):
-        with pytest.raises(NotImplementedError, match="deeper decoders"):
-            dec_train_gru.apply_train_fused(bad, dcfg, emb_in, e, lens, None,
-                                            None, None)
+    with pytest.raises(ValueError, match="9"):
+        dec_train_gru.apply_train_fused(
+            dict(params, dec_cells=params["dec_cells"] * 9), dcfg, emb_in, e,
+            lens, None, None, None)
     deep = dataclasses.replace(dcfg, num_layers_dec=2, lm_hidden_size=6)
     p2 = attn_decoder.init(torch.Generator().manual_seed(1), deep, 16,
                            device="cpu")
     assert {"simple_proj", "dec_cells"} <= set(p2)
+    noise = attn_decoder.train_noise(torch.Generator().manual_seed(2), deep,
+                                     L - 1, B, "cpu")
     out = attn_decoder.apply_train(p2, deep, torch.tensor(ids), e, lens,
-                                   gen=torch.Generator().manual_seed(2))
+                                   noise=noise)
     assert out.shape == (L - 1, B, V) and bool(torch.isfinite(out).all())
+    fused = dec_train_gru.apply_train_fused(
+        p2, deep, p2["embedding"][torch.tensor(ids).long()], e, lens, *noise)
+    torch.testing.assert_close(fused, out, atol=1e-5, rtol=0)
     out = params["output_proj"]
     out["bias"] = out["bias"] + 0.8 * (torch.arange(V) == 2)  # one finishes
     go = torch.ones(B).long()

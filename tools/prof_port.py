@@ -43,6 +43,10 @@ chip_smoke.py's):
    0.3`, char + phone) and of the CTC family (`-model_family ctc`), and
    the hybrid's decode of a batch of 8 512-frame utterances by joint
    CTC/attention beams (kernel #16 every step) and by its plain beam;
+   then one asr_step of the deep decoders' char + phone model
+   (chip_smoke.deep_cfg: a two-layer char decoder, 1280-wide LM cells
+   through SimpleProjection, ind_softmax; #8/#9's deep branches) and its
+   lm_step at H=1280 (#4's training form and #5's wide form);
 4. the GRU decode of the `-gru` flagship (random weights from seed 0) on
    the encoder output of 512-frame utterances: one beam search (beam 4,
    120 steps) of a batch of 8 by the per-step route (#11's GRU branch, the
@@ -293,7 +297,8 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "output_fused_kernel", "beam_select_kernel",
                "beam_mega_kernel", "attn_output_kernel",
                "transducer_fwd_kernel", "transducer_bwd_kernel",
-               "ctc_prefix_kernel")
+               "ctc_prefix_kernel", "lstm_wide_fwd_kernel",
+               "lstm_wide_bwd_kernel")
 # PyTorch's own kernels by what they compute (the rest is "other").
 TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
 
@@ -422,9 +427,11 @@ def profile_joint_decode(dev) -> dict:
 def profile_train(cfg, dev, name: str | None = None) -> dict:
     """One asr_step of `cfg` at the bench's train shape, and one lm_step at
     the LM task's shape when `cfg` has a phone task and an LSTM char
-    decoder (the recipe's model; a GRU char decoder has no LM task)."""
+    decoder (the recipe's model; a GRU char decoder has no LM task), keyed
+    "lm_step" for the flagship and "<name>_lm_step" for a named step."""
     V = cfg.decoders["char"].vocab_size
-    lm_cfg = LMConfig(vocab_size=V)
+    lm_cfg = LMConfig(vocab_size=V,
+                      lm_hidden_size=cfg.decoders["char"].lm_hidden_size)
     params = step.init_params(torch.Generator().manual_seed(0), cfg,
                               device=dev)
     asr_step, lm_step = step.make_train_step(cfg, lm_cfg, device=dev)
@@ -437,6 +444,7 @@ def profile_train(cfg, dev, name: str | None = None) -> dict:
     def one_asr():
         holder["state"], _ = asr_step(holder["state"], batch, gen)
 
+    lm_key = "lm_step" if name is None else f"{name}_lm_step"
     name = name or ("train_step" if cfg.tasks == ["char"]
                     else "multitask_step")
     out = {name: profile_step(
@@ -451,9 +459,10 @@ def profile_train(cfg, dev, name: str | None = None) -> dict:
             holder["state"], _ = lm_step(holder["state"], ids, lens, gen,
                                          valid)
 
-        out["lm_step"] = profile_step(
-            f"lm_step B={chip_smoke.LM_B} T={chip_smoke.LM_T}", one_lm, 0)
-        out["lm_step"]["tokens"] = int(lens.sum())
+        out[lm_key] = profile_step(
+            f"{lm_key} B={chip_smoke.LM_B} T={chip_smoke.LM_T} "
+            f"H={lm_cfg.lm_hidden_size}", one_lm, 0)
+        out[lm_key]["tokens"] = int(lens.sum())
     return out
 
 
@@ -491,6 +500,7 @@ def main() -> int:
     result.update(profile_train(chip_smoke.hybrid_cfg(), dev, "hybrid_step"))
     result.update(profile_train(chip_smoke.ctc_cfg(), dev, "ctc_step"))
     result.update(profile_joint_decode(dev))
+    result.update(profile_train(chip_smoke.deep_cfg(), dev, "deep_step"))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
