@@ -177,15 +177,39 @@ Phases; any failure exits nonzero and prints no result line:
    utterance) and `-test -beam_size 4` at 64 (the per-step route); (e)
    phase 4's serving burst on the deep model, and one batch decoded on
    the card equal to the CPU's up to near-ties.
+14. the transformer encoder family (`-encoder_type transformer -num_heads
+   4 -ffn_mult 4 -enc_subsample 8`: bench.py's `_measure_transformer`, 4
+   blocks at d_model 512 under the flagship's char and phone LSTM
+   decoders; transformer_cfg) with kernel #18, the encoder's
+   self-attention core, which runs in inference when E2E_ASR_MHSA_KERNEL
+   is set (as in the JAX package): (a) #18 against its plain version at
+   B=8, T'=64 without and with the relative-position matrix and at B=64,
+   T'=48 (ragged lengths, one zero-length row, whose probs must be
+   uniform), within 1e-5, beside scaled_dot_product_attention on the same
+   out; (b) one char + phone asr_step at B=16 on the card and on the CPU,
+   for this form and one with rel_pos_bias and a conv module of kernel 15,
+   must agree (phase 5's tolerances); (c) three steps of each at B=128,
+   T=384, L=48, every loss finite, #8/#9 launched and neither #18 nor a
+   recurrent encoder's kernel, their times and frames/s, and the step's
+   device split (tools/prof_port.py: matmuls, the attention chain, the
+   rest); (d) the Trainer on phase 6's corpus with the LM task (train,
+   greedy dev WER, save, exact resume); (e) `cli.main` with those flags and
+   the gate set: train (the xfmr_4h_ run directory), `-dev -beam_size 4
+   -buck_batch_sizes 1` (one #15 launch an utterance) and `-test
+   -beam_size 4` at 64, each launching #18; (f) phase 4's serving burst
+   with the gate on (#18 launched) and off (not), and its three batches
+   of 8, and one batch of the rel + conv-15 form, decoded with the gate on
+   and off, equal up to near-ties (< 1e-3).
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
 entry-point run, the GRU runs, the #13 runs, the transducer runs, the CTC
-and hybrid runs, the deep decoders' runs) counts its kernels' launches
+and hybrid runs, the deep decoders' runs, the transformer's runs) counts
+its kernels' launches
 from zero; a row's
 `launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
 the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off. No phase runs at a cut depth: the whole run
-took 196 s on the card with the deep decoders' phase, the build
-included.
+took 244 s on the card with the transformer's phase (about 27 s of it),
+the build included.
 """
 from __future__ import annotations
 
@@ -217,7 +241,7 @@ from e2e_asr_tpu_torch.eval.serving import BatchingTranscriber
 from e2e_asr_tpu_torch.kernels import (attn_output, beam_mega, beam_select,
                                        build, ctc_prefix, dec_step,
                                        dec_train, dec_train_gru, gru_seq,
-                                       lstm_bidir, lstm_seq)
+                                       lstm_bidir, lstm_seq, mhsa)
 from e2e_asr_tpu_torch.kernels import transducer as rnnt_kernel
 from e2e_asr_tpu_torch.models import (attn_decoder, encoder, seq2seq,
                                       transducer)
@@ -242,7 +266,8 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "lstm_seq_wide": 1e-4, "lstm_seq_wide_masked": 1e-4,
        "lstm_seq_wide_train": 1e-4, "lstm_bwd_wide": 1e-4,
        "dec_train_fwd_deep": 1e-4, "dec_train_bwd_deep": 1e-4,
-       "dec_train_gru_fwd_deep": 1e-4, "dec_train_gru_bwd_deep": 1e-4}
+       "dec_train_gru_fwd_deep": 1e-4, "dec_train_gru_bwd_deep": 1e-4,
+       "mhsa": 1e-5, "mhsa_rel": 1e-5, "mhsa_test": 1e-5}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
             "dec_train_gru_bwd_phone", "lstm_bwd_wide", "dec_train_bwd_deep",
@@ -274,6 +299,16 @@ CTC_PREFIX_CASES = [(8, 4, MEGA_T, 40, None), (1, 16, MEGA_T, 40, None),
 JOINT_CTC = 0.3
 WIDE_LM = 1280     # deep_cfg's LM cell: the narrowest width past #3's cap
                    # at which the JAX package itself streams W_h (#4)
+# Kernel #18's cases (name, B, T', relmat): the serving burst's largest
+# bucket (512 frames -> T' = 64 after the 8x subsample, at most 8 requests
+# a batch) without and with the relative-position matrix, and `-test` at a
+# batch of 64 (T' up to 47; 48 here); nh 4, hd 128 (d_model 512). Ragged
+# lengths, the last row of zero length (its probs uniform). Held to 1e-5
+# absolute on out and probs (sums of up to 128 float32 products).
+MHSA_CASES = [("mhsa", 8, 64, False), ("mhsa_rel", 8, 64, True),
+              ("mhsa_test", 64, 48, False)]
+XFMR_FLAGS = ["-encoder_type", "transformer", "-num_heads", "4",
+              "-ffn_mult", "4", "-enc_subsample", "8"]
 
 
 def fail(msg: str):
@@ -378,6 +413,21 @@ def deep_cfg(cells: str = "lstm", char_vocab: int = 40,
         t: dataclasses.replace(d, lm_hidden_size=WIDE_LM, ind_softmax=True,
                                num_layers_dec=2 if t == "char" else 1)
         for t, d in base.decoders.items()})
+
+
+def transformer_cfg(char_vocab: int = 40,
+                    phone_vocab: int | None = PHONE_VOCAB, rel: bool = False,
+                    conv: int = 0):
+    """The transformer encoder family at bench.py's widths
+    (`_measure_transformer`: the flagship with encoder_type "transformer",
+    4 heads, FFN x4, an 8x subsample: 4 blocks at d_model 512) under the
+    flagship's LSTM attention decoders, char on block 4 and the recipe's
+    phone decoder on block 3 (XFMR_FLAGS); rel and conv add the
+    relative-position bias and a conv module of that kernel size."""
+    base = flagship_cfg(char_vocab, phone_vocab)
+    return dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, encoder_type="transformer", num_heads=4, ffn_mult=4,
+        subsample=8, rel_pos_bias=rel, conv_kernel=conv))
 
 
 class Recorder:
@@ -1376,7 +1426,9 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "dec_train_bwd_deep": (dec_train, "BWD_LAUNCHES"),
             "dec_train_gru_fwd_deep": (dec_train_gru, "FWD_LAUNCHES"),
             "dec_train_gru_bwd_deep": (dec_train_gru, "BWD_LAUNCHES"),
-            "beam_mega_deep": (beam_mega, "LAUNCHES")}
+            "beam_mega_deep": (beam_mega, "LAUNCHES"),
+            "mhsa": (mhsa, "LAUNCHES"), "mhsa_rel": (mhsa, "LAUNCHES"),
+            "mhsa_test": (mhsa, "LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1423,6 +1475,14 @@ JOINT_PATH = ("lstm_bidir", "cells_fused", "output_fused", "beam_select",
 DEEP_LM_PATH = ("lstm_seq_wide_train", "lstm_bwd_wide")
 DEEP_RECIPE_PATH = TRAIN_PATH + DEEP_LM_PATH + ("lstm_bidir", "cells_fused",
                                                 "output_fused")
+# The transformer encoder trains in PyTorch (#18 runs in inference only,
+# behind E2E_ASR_MHSA_KERNEL) under the LSTM decoders' #8/#9; its decodes
+# launch #18 once a block when the gate is set, and never kernel A.
+XFMR_TRAIN_PATH = TRAIN_PATH[2:]
+XFMR_RECIPE_PATH = XFMR_TRAIN_PATH + LM_PATH + ("cells_fused",
+                                                "output_fused")
+RECURRENT_ENCODER = ("lstm_bidir", "lstm_bidir_train", "lstm_bidir_bwd",
+                     "gru_bidir", "gru_bidir_train", "gru_bidir_bwd")
 
 
 def decode_rows(gru_decoder: bool) -> tuple[str, str]:
@@ -1485,11 +1545,19 @@ def compare_train_step(cfg, dev, lm_cfg) -> None:
     batch = train_batch(np.random.default_rng(5), B, cfg)
     gen = torch.Generator().manual_seed(5)
     params = step.init_params(gen, cfg, device="cpu")
-    masks, t = {}, TRAIN_T
-    for i, reduce in enumerate(encoder.layer_plan(cfg.encoder, 4)):
-        masks[i + 1] = dropout_mask(gen, (t, B, 2 * cfg.encoder.hidden_size),
-                                    cfg.encoder.out_prob, "cpu")
-        t = -(-t // cfg.encoder.skip_step) if reduce else t
+    masks, t, enc = {}, TRAIN_T, cfg.encoder
+    if enc.encoder_type == "transformer":
+        # Each block's (attention, conv, FFN) masks [B, T', D].
+        shape = (B, -(-t // enc.subsample), 2 * enc.hidden_size)
+        for i in range(1, 5):
+            masks[i] = tuple(
+                dropout_mask(gen, shape, enc.out_prob, "cpu")
+                if j != 1 or enc.conv_kernel else None for j in range(3))
+    for i, reduce in enumerate(encoder.layer_plan(enc, 4)
+                               if enc.encoder_type == "rnn" else ()):
+        masks[i + 1] = dropout_mask(gen, (t, B, 2 * enc.hidden_size),
+                                    enc.out_prob, "cpu")
+        t = -(-t // enc.skip_step) if reduce else t
     noise = {"encoder": masks}
     if cfg.model_family == "transducer":
         noise["pred"] = transducer.train_noise(gen, cfg, TRAIN_L, B, "cpu")
@@ -1726,14 +1794,17 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             vocab_dir=os.path.join(root, "vocab"),
             train_dir=os.path.join(root, "train"),
             best_model_dir=os.path.join(root, "best"),
-            lm_prob=0.5 if cells in ("lstm", "gru_encoder", "deep") else 0.0,
+            lm_prob=(0.5 if cells in ("lstm", "gru_encoder", "deep",
+                                      "transformer") else 0.0),
             steps_per_checkpoint=3, compute_dtype="float32")
         models = {"transducer": lambda: transducer_cfg(sizes["char"]),
                   "ctc": lambda: ctc_cfg(sizes["char"]),
                   "hybrid": lambda: hybrid_cfg(sizes["char"],
                                                sizes["phone"]),
                   "deep": lambda: deep_cfg("lstm", sizes["char"],
-                                           sizes["phone"])}
+                                           sizes["phone"]),
+                  "transformer": lambda: transformer_cfg(sizes["char"],
+                                                         sizes["phone"])}
         cfg = ExperimentConfig(
             model=models.get(cells, lambda: flagship_cfg(
                 sizes["char"], sizes["phone"], cells))(),
@@ -1762,10 +1833,15 @@ def recipe(dev, card, cells: str = "lstm") -> dict:
             "ctc": CTC_RECIPE_PATH,
             "hybrid": TRAIN_PATH + ("lstm_bidir", "cells_fused",
                                     "output_fused"),
-            "deep": DEEP_RECIPE_PATH}[cells])}
+            "deep": DEEP_RECIPE_PATH,
+            "transformer": XFMR_RECIPE_PATH}[cells])}
         if cells in ("transducer", "ctc") and any(runs[name][k]
                                                   for k in ATTENTION_DECODE):
             fail(f"{name} launched an attention-decoder kernel")
+        if cells == "transformer" and any(
+                runs[name][k] for k in RECURRENT_ENCODER + ("mhsa",)):
+            fail(f"{name} launched a recurrent encoder's kernel, or #18 "
+                 "without its gate")
         asr = [float(x) for x in losses["asr"]]
         lm = [float(x) for x in losses["lm"]]
         with open(os.path.join(train_cfg.train_dir, "asr_err.txt")) as f:
@@ -2668,6 +2744,228 @@ def deep_decoders(dev, card, rev_vocab) -> dict:
     return paths
 
 
+def check_mhsa(dev, record: Recorder) -> None:
+    """Phase 14a: kernel #18 against its plain version at MHSA_CASES,
+    beside scaled_dot_product_attention on the same out (its additive mask
+    the relmat plus the padding bias; it computes out alone, not the
+    probs), with the bound of the function: q, k, v, the biases read once,
+    out and probs written once; the two matmuls' and the softmax's float32
+    operations."""
+    rng = np.random.default_rng(18)
+    nh, hd = 4, 128
+    for name, B, T, rel in MHSA_CASES:
+        def rand(*shape, scale=1.0):
+            return torch.tensor((rng.normal(size=shape) * scale).astype(
+                np.float32), device=dev)
+
+        q, k, v = (rand(B, nh, T, hd) for _ in range(3))
+        lens = rng.integers(1, T + 1, size=B)
+        lens[0], lens[-1] = T, 0
+        pad = torch.tensor(np.where(np.arange(T)[None, :] < lens[:, None],
+                                    0.0, -1e30).astype(np.float32),
+                           device=dev)
+        relmat = (rand(nh, T, T, scale=0.3) if rel
+                  else torch.zeros(nh, T, T, device=dev))
+        args = (q, k, v, pad, relmat)
+        got = mhsa.attend(*args, return_probs=True)
+        want = mhsa.attend_reference(*args)
+        uniform = torch.full_like(got[1][-1], 1.0 / T)
+        if float((got[1][-1] - uniform).abs().max()) > 1e-7:
+            fail(f"{name}: the zero-length row's probs are not uniform")
+        mask = (relmat[None] + pad[:, None, None, :]).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = float((sdpa(q, k, v, attn_mask=mask) - want[0])[:-1]
+                        .abs().max())
+        print(f"{name}: scaled_dot_product_attention vs the plain version "
+              f"on the rows of nonzero length: {lib_err:.3e}", flush=True)
+        flops = 4 * B * nh * T * T * hd + 8 * B * nh * T * T
+        record(name, "e2e_asr_tpu_torch/csrc/mhsa.cu",
+               "e2e_asr_tpu/ops/mhsa_pallas.py:116", got, want,
+               lambda: mhsa.attend(*args, return_probs=True),
+               lambda: mhsa.attend_reference(*args), 50, 20,
+               (flops, nbytes(*args, *got)),
+               library=lambda: time_ms(
+                   lambda: sdpa(q, k, v, attn_mask=mask), 50))
+
+
+class mhsa_gate:
+    """E2E_ASR_MHSA_KERNEL set (on) or unset (off) inside the block, the
+    caller's value restored after it."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = os.environ.pop("E2E_ASR_MHSA_KERNEL", None)
+        if self.on:
+            os.environ["E2E_ASR_MHSA_KERNEL"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("E2E_ASR_MHSA_KERNEL", None)
+        if self.saved is not None:
+            os.environ["E2E_ASR_MHSA_KERNEL"] = self.saved
+
+
+def xfmr_entry_points(dev, card) -> dict:
+    """Phase 14e: `cli.main` with XFMR_FLAGS at the flagship's decoders on
+    phase 7's corpus shape (64 training, 8 dev, 8 test utterances), with
+    E2E_ASR_MHSA_KERNEL set: trains 2 steps (the xfmr_4h_ run directory;
+    its greedy dev evaluation launches #18), `-dev -beam_size 4
+    -buck_batch_sizes 1` (one #15 launch an utterance) and `-test
+    -beam_size 4` at 64 (the per-step route). Every run launches #18 and
+    no recurrent encoder kernel. Returns the launches of each run."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as root, mhsa_gate(True):
+        vocab, data = os.path.join(root, "vocab"), os.path.join(root, "data")
+        synth.make_vocab_dir(vocab)
+        os.makedirs(data)
+        utt = dict(feat_length=80, min_tokens=24, max_tokens=47,
+                   frames_per_token=8)
+        for name, n, seed in (("train_1k.0.0001", 64, 3), ("dev.0001", 8, 4),
+                              ("eval2000.0001", 8, 5)):
+            synth.write_speech_corpus(os.path.join(data, name), n, seed=seed,
+                                      **utt)
+        argv = ["-data_dir", data, "-vocab_dir", vocab, "-tb_dir",
+                os.path.join(root, "models"), "-steps_per_checkpoint", "2",
+                "-max_epochs", "0", "-compute_dtype", "float32", *XFMR_FLAGS]
+        opts = cli.parse_options(argv + ["-dev"])
+        best, train_dir = opts.train.best_model_dir, opts.train.train_dir
+        if not os.path.basename(train_dir).startswith("xfmr_4h_"):
+            fail(f"the transformer run directory is {train_dir}")
+        per_step = ("cells_fused", "output_fused", "beam_select")
+        for name, flags, required, forbidden, n_mega in (
+                ("train", ["-buck_batch_sizes", "32"],
+                 XFMR_TRAIN_PATH + ("mhsa", "cells_fused", "output_fused"),
+                 ("beam_mega",), 0),
+                ("-dev beam 4 batch 1", ["-dev", "-beam_size", "4",
+                                         "-buck_batch_sizes", "1"],
+                 ("mhsa", "beam_mega"), per_step, 8),
+                ("-test beam 4", ["-test", "-beam_size", "4"],
+                 ("mhsa",) + per_step, ("beam_mega",), 0)):
+            label = f"cli transformer {name}"
+            zero_launches()
+            t0 = time.monotonic()
+            cli.main(argv + flags)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = read_launches(label, required)
+            if (any(counts[k] for k in forbidden + RECURRENT_ENCODER)
+                    or counts["beam_mega"] != n_mega):
+                fail(f"{label}: {counts['beam_mega']} #15 launches, not "
+                     f"{n_mega}, or a kernel of {forbidden} or a recurrent "
+                     "encoder's launched")
+            if name == "train":
+                if not checkpoint.latest_path(train_dir):
+                    fail(f"{label} wrote no checkpoint")
+            else:
+                with open(os.path.join(best, "raw_4.txt")) as f:
+                    if len(f.read().splitlines()) != 8:
+                        fail(f"{label}: not 8 hypotheses")
+            print(f"{label} ({card}): wall {wall:.3f} s, #18 launches "
+                  f"{counts['mhsa']}", flush=True)
+            runs[label] = counts
+    return runs
+
+
+def xfmr_gate_runs(dev, card, rev_vocab) -> dict:
+    """Phase 14f: phase 4's serving burst on the transformer model (random
+    weights from seed 0) with the #18 gate on and then off: the gated burst
+    launches #18, the other not; every request gets a transcript. Its
+    three batches of 8 (in request order, each padded to its bucket) are
+    decoded with the gate on and off and must agree up to near-ties (as
+    phase 4); so must one batch of the second form (rel_pos_bias with a
+    random table, conv kernel 15), whose encoder feeds #18's relmat input.
+    Returns the launches of the gated burst."""
+    cfg = transformer_cfg(phone_vocab=None)
+    params = seq2seq.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    decode = beam_eval.make_beam_decoder(
+        cfg, BeamConfig(beam_size=4, max_steps=120))
+    runs, texts = {}, {}
+    with torch.no_grad():
+        for on in (True, False):
+            with mhsa_gate(on):
+                zero_launches()
+                feats, texts[on], stats = serve(params, cfg, dev, rev_vocab)
+                label = f"serving transformer, #18 gate {'on' if on else 'off'}"
+                counts = read_launches(label, SERVING_PATH[1:]
+                                       + (("mhsa",) if on else ()))
+                if (not on and counts["mhsa"]) or any(
+                        counts[k] for k in RECURRENT_ENCODER):
+                    fail(f"{label} launched #18 or a recurrent encoder")
+                print(f"{label} ({card}): {json.dumps(stats)}", flush=True)
+                if len(texts[on]) != 24 or not all(
+                        isinstance(x, str) for x in texts[on]):
+                    fail(f"{label}: not every request got a transcript")
+                if on:
+                    runs[label] = counts
+        same = sum(a == b for a, b in zip(texts[True], texts[False]))
+        print(f"serving transformer: {same}/24 transcripts identical with "
+              "the #18 gate on and off", flush=True)
+        second = transformer_cfg(phone_vocab=None, rel=True, conv=15)
+        sparams = seq2seq.init(torch.Generator().manual_seed(1), second,
+                               device=dev)
+        for i in range(1, 5):
+            sparams["encoder"][f"block_{i}"]["rel_bias"].normal_(0, 0.5)
+        for what, model, p, reqs in (
+                [("burst", cfg, params, feats[i:i + 8]) for i in (0, 8, 16)]
+                + [("rel + conv 15", second, sparams, feats[:8])]):
+            dec = decode if model is cfg else beam_eval.make_beam_decoder(
+                model, BeamConfig(beam_size=4, max_steps=120))
+            batch = serving_batch(model, reqs)
+            out = {}
+            for on in (True, False):
+                with mhsa_gate(on):
+                    before = mhsa.LAUNCHES
+                    out[on] = recorded_selections(
+                        lambda: dec(p, batch))
+                    if (mhsa.LAUNCHES > before) != on:
+                        fail(f"{what}: #18 launched {mhsa.LAUNCHES - before}"
+                             f" times with the gate {on}")
+            hold_beam_runs(f"transformer {what} (T={batch['logmel'].shape[1]})"
+                           " #18 gate on vs off", out[True], out[False],
+                           model.decoders["char"].vocab_size)
+    return runs
+
+
+def transformer_family(dev, card, rev_vocab, record: Recorder) -> dict:
+    """Phase 14: the transformer encoder family (transformer_cfg): (a) #18
+    against its plain version (check_mhsa); (b) one char + phone asr_step
+    at B=16 on the card and on the CPU, for the plain form and the rel +
+    conv-15 form, must agree (phase 5's tolerances); (c) three steps of
+    each at B=128, T=384, L=48: every loss finite, #8/#9 launched, #18 and
+    kernel A not; their times and frames/s, and the plain form's device
+    split (tools/prof_port.py: matmuls, the attention chain, the rest);
+    (d) the Trainer on phase 6's corpus with the LM task (train, greedy dev
+    WER, save, exact resume); (e) the command line with the gate
+    (xfmr_entry_points); (f) the burst with the gate on and off
+    (xfmr_gate_runs). Returns the launches of each main-path run."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import prof_port
+    t0 = time.monotonic()
+    with torch.no_grad():
+        check_mhsa(dev, record)
+    paths = {}
+    cfg = transformer_cfg()
+    shapes = step.init_params(torch.Generator(), cfg, device="meta")
+    print(f"transformer model: {seq2seq.param_count(shapes)} parameters, "
+          f"encoder {seq2seq.param_count(shapes['encoder'])}")
+    with mhsa_gate(False):
+        for label, model in (("transformer training", cfg),
+                             ("transformer training (rel + conv 15)",
+                              transformer_cfg(rel=True, conv=15))):
+            paths[label] = train(model, dev, card, XFMR_TRAIN_PATH, label)
+            if any(paths[label][k] for k in RECURRENT_ENCODER + ("mhsa",)):
+                fail(f"{label} launched #18 or a recurrent encoder's kernel")
+        prof_port.profile_train(cfg, dev, "transformer_step")
+        paths.update(recipe(dev, card, "transformer"))
+    paths.update(xfmr_entry_points(dev, card))
+    paths.update(xfmr_gate_runs(dev, card, rev_vocab))
+    print(f"phase 14 (the transformer family) took "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -2800,6 +3098,11 @@ def main() -> int:
     # -ind_softmax): steps card vs CPU and at full size with the LM task on
     # #4, the Trainer, the command line (LSTM and -gru), serving
     paths.update(deep_decoders(dev, card, rev_vocab))
+
+    # 14. the transformer encoder family (-encoder_type transformer) with
+    # kernel #18: its rows, steps card vs CPU and at full size, the
+    # Trainer, the command line and the burst with the #18 gate on and off
+    paths.update(transformer_family(dev, card, rev_vocab, record))
     for row in record.rows:
         row["launches"] = sum(p[row["name"]] for p in paths.values())
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f}"

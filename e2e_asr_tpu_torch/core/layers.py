@@ -1,5 +1,6 @@
-"""Parameter initializers and the dense layer (port of
-e2e_asr_tpu/core/layers.py).
+"""Parameter initializers, the dense layer, dropout, and the transformer
+encoder's layer norm and GELU (port of e2e_asr_tpu/core/layers.py and of
+`_layer_norm` in e2e_asr_tpu/models/transformer_encoder.py).
 
 Initialization policy mirrors the reference:
 - encoder LSTM kernels: U(-0.075, 0.075)   (models/encoder.py)
@@ -58,3 +59,18 @@ def dropout(x: torch.Tensor, keep_prob: float, *, gen=None,
     if mask is None:
         mask = dropout_mask(gen, x.shape, keep_prob, x.device)
     return torch.where(mask, x / keep_prob, torch.zeros_like(x))
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis, with
+    the biased variance (transformer_encoder._layer_norm)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation (torch's default is the
+    exact erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "e2e_transducer_fwd": [_P] * 6 + [_I, _I, _I, _P],
     "e2e_transducer_bwd": [_P] * 9 + [_I, _I, _I, _P],
     "e2e_ctc_prefix_scan": [_P] * 9 + [_I, _I, _I, _P],
+    "e2e_mhsa_fwd": [_P] * 7 + [_I] * 4 + [_P],
 }
 _lock = threading.Lock()
 
@@ -158,6 +159,15 @@ def ptrs(*tensors) -> ctypes.Array:
 
 def ints(*values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
+
+
+def check_width(H: int, limit: int, name: str) -> None:
+    """Raise ValueError before a launch whose hidden width H is above the
+    kernel's `limit` (one block a chain keeps a whole layer's units)."""
+    if H > limit:
+        raise ValueError(f"{name}: H={H} is above the kernel's limit of "
+                         f"{limit} units; wider layers are not ported yet "
+                         "(ROADMAP.md Queue 1, 'Wide layers')")
 
 
 def require(t, name: str, dtype, shape: tuple, device) -> None:

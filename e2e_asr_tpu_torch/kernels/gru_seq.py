@@ -46,6 +46,14 @@ MASKED_LAUNCHES = 0        # inference, one direction with the carry mask
 TRAIN_LAUNCHES = 0         # training form (also writes r | u and c)
 BWD_LAUNCHES = 0           # kernel #7, both directions in one launch
 BWD_SINGLE_LAUNCHES = 0    # kernel #7, one direction
+# The widest layer kernels #6 and #7 take: a block holds one thread per unit
+# (csrc/gru_seq.cu, csrc/gru_bwd.cu).
+MAX_H = 1024
+
+
+def check_width(H: int, name: str = "gru_seq") -> None:
+    """ValueError for H above MAX_H, before any launch."""
+    build.check_width(H, MAX_H, name)
 
 
 def gru_seq_reference(gates_x, cand_x, w_gh, w_ch, mask=None,
@@ -124,6 +132,7 @@ def _fwd_cuda(dirs, train: bool, name: str):
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     T, B, H = dirs[0][1].shape
+    check_width(H, name)
     for i, d in enumerate(dirs):
         _check_dir(*d, dev, f"{name}[{i}]")
     outs, ptr_list = [], []
@@ -149,6 +158,7 @@ def _bwd_cuda(dirs, name: str):
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     T, B, H = dirs[0][2].shape
+    check_width(H, name)
     f32, req = torch.float32, build.require
     for i, (wg, wc, h, ru, c, g, mask) in enumerate(dirs):
         req(wg, f"{name}[{i}].w_gh", f32, (H, 2 * H), dev)

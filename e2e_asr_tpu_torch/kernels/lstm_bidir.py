@@ -46,6 +46,14 @@ LAUNCHES = 0               # inference forward
 TRAIN_LAUNCHES = 0         # training forward (also writes c)
 BWD_LAUNCHES = 0           # backward, both directions in one launch
 BWD_SINGLE_LAUNCHES = 0    # backward, one direction
+# The widest layer the forward and backward kernels take: a block holds one
+# thread per unit (csrc/lstm_bidir.cu, csrc/lstm_bidir_bwd.cu).
+MAX_H = 1024
+
+
+def check_width(H: int, name: str = "lstm_seq_bidir") -> None:
+    """ValueError for H above MAX_H, before any launch."""
+    build.check_width(H, MAX_H, name)
 
 
 def lstm_seq_bidir_reference(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw,
@@ -118,6 +126,7 @@ def _check_forward(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw):
     if H4 % 4:
         raise ValueError(f"x_proj last dim {H4} is not 4*H")
     H = H4 // 4
+    check_width(H)
     f32 = torch.float32
     build.require(x_proj_fw, "x_proj_fw", f32, (T, B, H4), dev)
     build.require(x_proj_bw, "x_proj_bw", f32, (T, B, H4), dev)
@@ -151,6 +160,7 @@ def lstm_seq_bidir_train(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw):
 def _bwd_cuda(dirs, T, B, H, dev):
     """One launch of the backward for 1 or 2 directions; dirs: tuples
     (w_h, h, c, x_proj, g, mask|None). Returns [(dx, dw)] per direction."""
+    check_width(H, "lstm_bwd")
     tiles = -(-4 * H // 64) * -(-H // 64)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = max(1, min(64, -(-2 * sms // (tiles * len(dirs)))))

@@ -1,5 +1,6 @@
 """Pyramidal BiLSTM or BiGRU encoder (port of the RNN branch of
-e2e_asr_tpu/models/encoder.py).
+e2e_asr_tpu/models/encoder.py); `init` and `apply` hand the transformer
+family (encoder_type "transformer") to models/transformer_encoder.py.
 
 A stack of bidirectional LSTM layers (GRU layers with use_lstm=False);
 between layers, `skip_step` consecutive frames are concatenated (halving
@@ -15,6 +16,7 @@ import torch
 from e2e_asr_tpu_torch.config import EncoderConfig
 from e2e_asr_tpu_torch.core import cells, rnn
 from e2e_asr_tpu_torch.core.layers import dropout_mask, uniform_init
+from e2e_asr_tpu_torch.models import transformer_encoder
 
 
 def _enc_init(gen, shape, *, device=None):
@@ -23,9 +25,8 @@ def _enc_init(gen, shape, *, device=None):
 
 
 def _check_supported(cfg: EncoderConfig) -> None:
-    if cfg.encoder_type != "rnn":
-        raise NotImplementedError("the transformer encoder is not ported yet "
-                                  "(ROADMAP.md Queue 1, 'Transformer family')")
+    if cfg.encoder_type not in ("rnn", "transformer"):
+        raise ValueError(f"unknown encoder type {cfg.encoder_type!r}")
     if not cfg.bi_dir:
         raise NotImplementedError(
             "forward-only encoders are not ported yet (ROADMAP.md Queue 1, "
@@ -59,6 +60,9 @@ def layer_input_dims(cfg: EncoderConfig, max_depth: int,
 
 def init(gen: torch.Generator, cfg: EncoderConfig, max_depth: int,
          feat_dim: int, *, device=None) -> dict:
+    if cfg.encoder_type == "transformer":
+        return transformer_encoder.init(gen, cfg, max_depth, feat_dim,
+                                        device=device)
     _check_supported(cfg)
     dims = layer_input_dims(cfg, max_depth, feat_dim)
     cell_init = cells.lstm_init if cfg.use_lstm else cells.gru_init
@@ -91,11 +95,16 @@ def apply(params: dict, cfg: EncoderConfig, x: torch.Tensor,
     num_layers: task -> encoder depth whose output that task attends to.
     train: output dropout on every layer, keep-masks from drop_masks
     {depth: bool [T_d, B, 2H]} where given, else drawn from `gen` (the
-    reference draws layer d's from fold_in(rng, d)).
+    reference draws layer d's from fold_in(rng, d)); a transformer's are
+    {block: (attention, conv, FFN) masks} (transformer_encoder.apply).
     Returns (attention_states {depth: [B, T_d, H_out]},
              time_major_states {depth: [T_d, B, H_out]},
              seq_lens {depth: [B]}).
     """
+    if cfg.encoder_type == "transformer":
+        return transformer_encoder.apply(params, cfg, x, seq_len, num_layers,
+                                         train=train, gen=gen,
+                                         drop_masks=drop_masks)
     _check_supported(cfg)
     if train and cfg.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP.md "

@@ -237,13 +237,14 @@ def test_wide_lstm_refuses_a_width_off_its_tiles(cuda):
 
 @pytest.mark.cuda
 def test_narrow_backward_refuses_wide(cuda):
-    """#5 (one block per chain) takes H <= 1024: handed H = 1088 it raises;
-    the route never hands it one."""
+    """#5 (one block per chain) takes H <= 1024: handed H = 1088 it raises
+    ValueError naming 'Wide layers' before the launch; the route never
+    hands it one."""
     rng = np.random.default_rng(5)
     T, B, H = 3, 2, 1088
     x = _rand(rng, T, B, 4 * H, device=cuda)
     w = _rand(rng, H, 4 * H, scale=0.03, device=cuda)
     h, c = lstm_seq.lstm_seq_reference(x, w, save_c=True)
-    with pytest.raises(RuntimeError, match="lstm_bwd"):
+    with pytest.raises(ValueError, match="Wide layers"):
         lstm_bidir.lstm_bwd(w, h, c, x, torch.ones_like(h))
         torch.cuda.synchronize()

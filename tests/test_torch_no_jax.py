@@ -2,8 +2,9 @@
 every module of e2e_asr_tpu_torch (its command line `cli.main`,
 `tools.beam_grid`, the GRU kernels' `kernels.gru_seq` and
 `kernels.dec_train_gru`, and the transducer's `kernels.transducer`,
-`core.transducer_loss`, `models.transducer` and `eval.transducer_beam`
-among them), chip_smoke.py and tools/prof_port.py in a
+`core.transducer_loss`, `models.transducer` and `eval.transducer_beam`,
+and the transformer encoder's `models.transformer_encoder` and
+`kernels.mhsa` among them), chip_smoke.py and tools/prof_port.py in a
 fresh interpreter leaves `jax` and every `e2e_asr_tpu` module out of
 sys.modules (the machine with the GPU has no JAX), and no file of the
 port, chip_smoke.py or tools/prof_port.py names a module of either."""
@@ -33,7 +34,9 @@ assert {"e2e_asr_tpu_torch.cli.main",
         "e2e_asr_tpu_torch.kernels.transducer",
         "e2e_asr_tpu_torch.core.transducer_loss",
         "e2e_asr_tpu_torch.models.transducer",
-        "e2e_asr_tpu_torch.eval.transducer_beam"} <= set(names), names
+        "e2e_asr_tpu_torch.eval.transducer_beam",
+        "e2e_asr_tpu_torch.models.transformer_encoder",
+        "e2e_asr_tpu_torch.kernels.mhsa"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "e2e_asr_tpu"))
 print(len(names), leaked)

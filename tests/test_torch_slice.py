@@ -138,5 +138,6 @@ def test_unported_features_raise(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         seq2seq.init(torch.Generator(), dataclasses.replace(
             cfg, encoder=dataclasses.replace(cfg.encoder,
-                                             encoder_type="transformer")),
+                                             encoder_type="transformer",
+                                             moe_experts=2)),
             device="cpu")

@@ -8,7 +8,8 @@ measures, float32 with TF32 off (the training kernels' isolated times are
 chip_smoke.py's):
 
 1. each kernel at the serving shapes (A: T=512/256/128/64, B=8, H=256;
-   B, C: N=32 rows; D: B=8, k=4, V=40), beside its plain PyTorch version:
+   B, C: N=32 rows; D: B=8, k=4, V=40; #18: B=8, T'=64, nh 4, hd 128),
+   beside its plain PyTorch version:
    - `device_us`: device time per call, the summed durations of the
      call's kernels, memcpys and memsets in a torch.profiler trace;
    - `event_ms`: CUDA-event time per call of back-to-back eager calls
@@ -17,6 +18,8 @@ chip_smoke.py's):
    - `graph_ms` (plain version only): CUDA-event time per call when the
      calls are replayed from one captured CUDA graph, i.e. without the
      host's launch cost;
+   - for #18, `library_device_us` and `library_event_ms`: the same two
+     for scaled_dot_product_attention on the same out;
 2. one batch of 8 through the beam decoder per bucket (128/256/512 frames,
    beam 4, 120 steps): `wall_ms` on the host clock around the decode and a
    device sync; `busy_ms`, the union of the intervals of all device
@@ -46,7 +49,12 @@ chip_smoke.py's):
    then one asr_step of the deep decoders' char + phone model
    (chip_smoke.deep_cfg: a two-layer char decoder, 1280-wide LM cells
    through SimpleProjection, ind_softmax; #8/#9's deep branches) and its
-   lm_step at H=1280 (#4's training form and #5's wide form);
+   lm_step at H=1280 (#4's training form and #5's wide form); then one
+   asr_step of the transformer encoder family (chip_smoke.transformer_cfg:
+   4 blocks at d_model 512 under the char + phone LSTM decoders), its
+   attention chain (the plain matmul chain of each block's self-attention,
+   forward and backward; kernel #18 runs in inference only) split from
+   the other matmuls as "attention_chain";
 4. the GRU decode of the `-gru` flagship (random weights from seed 0) on
    the encoder output of 512-frame utterances: one beam search (beam 4,
    120 steps) of a batch of 8 by the per-step route (#11's GRU branch, the
@@ -77,7 +85,7 @@ import chip_smoke  # noqa: E402
 from e2e_asr_tpu_torch.core import cells  # noqa: E402
 from e2e_asr_tpu_torch.eval import beam, beam_eval  # noqa: E402
 from e2e_asr_tpu_torch.kernels import (beam_select, build,  # noqa: E402
-                                       dec_step, lstm_bidir)
+                                       dec_step, lstm_bidir, mhsa)
 from e2e_asr_tpu_torch.models import seq2seq, transducer  # noqa: E402
 from e2e_asr_tpu_torch.train import step  # noqa: E402
 from e2e_asr_tpu_torch.config import BeamConfig, LMConfig  # noqa: E402
@@ -86,8 +94,10 @@ TRACE_DIR = ROOT / "build" / "e2e_asr_tpu_torch" / "prof"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def device_events(fn, n: int, name: str) -> list[dict]:
-    """Run fn() n times under the profiler; the trace's device events."""
+def device_events(fn, n: int, name: str, keep_all: bool = False
+                  ) -> list[dict]:
+    """Run fn() n times under the profiler; the trace's device events (or
+    every event of the trace with keep_all)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -99,7 +109,8 @@ def device_events(fn, n: int, name: str) -> list[dict]:
     path = TRACE_DIR / f"{name}.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
-    return [e for e in events if e.get("cat") in DEVICE_CATS]
+    return events if keep_all else [e for e in events
+                                    if e.get("cat") in DEVICE_CATS]
 
 
 def busy_us(events: list[dict]) -> float:
@@ -135,7 +146,8 @@ def graph_ms(fn, n: int) -> float:
 
 
 def kernel_cases(params, cfg, dev) -> dict:
-    """name -> (kernel call, plain call, CUDA kernel name, calls to time)."""
+    """name -> (kernel call, plain call, CUDA kernel name, calls to time,
+    one PyTorch call of the same function or None)."""
     rng = np.random.default_rng(1)
 
     def rand(*shape, scale=1.0):
@@ -152,7 +164,7 @@ def kernel_cases(params, cfg, dev) -> dict:
         cases[f"lstm_bidir_T{T}"] = (
             lambda a=args: lstm_bidir.lstm_seq_bidir(*a),
             lambda a=args: lstm_bidir.lstm_seq_bidir_reference(*a),
-            "lstm_bidir_fwd_kernel", 3)
+            "lstm_bidir_fwd_kernel", 3, None)
     dec, dcfg = params["decoder_char"], cfg.decoders["char"]
     N, H, Henc = 32, dcfg.hidden_size_dec, 2 * cfg.encoder.hidden_size
 
@@ -167,11 +179,11 @@ def kernel_cases(params, cfg, dev) -> dict:
               tuple(state(H) for _ in range(dcfg.num_layers_dec)))
     cases["cells_fused"] = (lambda: dec_step.cells_fused(*b_args),
                             lambda: dec_step.cells_fused_reference(*b_args),
-                            "cells_fused_kernel", 50)
+                            "cells_fused_kernel", 50, None)
     c_args = (dec, dcfg, rand(N, H, scale=0.5), rand(N, Henc, scale=0.3))
     cases["output_fused"] = (lambda: dec_step.output_fused(*c_args),
                              lambda: dec_step.output_fused_reference(*c_args),
-                             "output_fused_kernel", 50)
+                             "output_fused_kernel", 50, None)
     d_args = (-torch.rand(8, 4, device=dev) * 20,
               torch.log_softmax(rand(8, 4, dcfg.vocab_size, scale=3.0), -1),
               torch.ones(8, 4, dtype=torch.bool, device=dev),
@@ -179,13 +191,27 @@ def kernel_cases(params, cfg, dev) -> dict:
     cases["beam_select"] = (
         lambda: beam_select.beam_select(*d_args),
         lambda: beam_select.beam_select_reference(*d_args),
-        "beam_select_kernel", 50)
+        "beam_select_kernel", 50, None)
+    # #18 at the burst's largest bucket (T' = 64, B = 8, nh 4, hd 128);
+    # the library call is scaled_dot_product_attention with the padding
+    # bias as its additive mask (out alone, not the probs).
+    lens = np.array([64, 60, 51, 40, 33, 20, 9, 1])
+    pad = torch.tensor(np.where(np.arange(64)[None, :] < lens[:, None], 0.0,
+                                -1e30).astype(np.float32), device=dev)
+    m_args = (rand(8, 4, 64, 128), rand(8, 4, 64, 128), rand(8, 4, 64, 128),
+              pad, torch.zeros(4, 64, 64, device=dev))
+    mask = (m_args[4][None] + pad[:, None, None, :]).contiguous()
+    cases["mhsa"] = (lambda: mhsa.attend(*m_args, return_probs=True),
+                     lambda: mhsa.attend_reference(*m_args),
+                     "mhsa_fwd_kernel", 50,
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         *m_args[:3], attn_mask=mask))
     return cases
 
 
 def profile_kernels(params, cfg, dev) -> dict:
     out = {}
-    for name, (kernel, plain, cuda_name, n) in kernel_cases(
+    for name, (kernel, plain, cuda_name, n, library) in kernel_cases(
             params, cfg, dev).items():
         # A profiling session now and then comes back without the kernel's
         # records (seen once at T=256 after a clean T=512 session): take
@@ -205,6 +231,10 @@ def profile_kernels(params, cfg, dev) -> dict:
                "event_ms": chip_smoke.time_ms(kernel, n),
                "plain_event_ms": chip_smoke.time_ms(plain, n),
                "plain_graph_ms": graph_ms(plain, n)}
+        if library is not None:
+            ev_l = device_events(library, n, f"{name}_library")
+            row["library_device_us"] = sum(e["dur"] for e in ev_l) / n
+            row["library_event_ms"] = chip_smoke.time_ms(library, n)
         print(f"{name}: " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),
               flush=True)
         out[name] = row
@@ -298,7 +328,7 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "beam_mega_kernel", "attn_output_kernel",
                "transducer_fwd_kernel", "transducer_bwd_kernel",
                "ctc_prefix_kernel", "lstm_wide_fwd_kernel",
-               "lstm_wide_bwd_kernel")
+               "lstm_wide_bwd_kernel", "mhsa_fwd_kernel")
 # PyTorch's own kernels by what they compute (the rest is "other").
 TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
 
@@ -321,9 +351,36 @@ def kernel_group(event: dict) -> str:
     return next((g for k, g in TORCH_KERNELS if k in low), "other")
 
 
-def profile_step(label: str, run, frames: int) -> dict:
+CHAIN = "attention_chain"
+
+
+def _within(point: dict, spans: list[dict]) -> bool:
+    return any(s["tid"] == point["tid"] and s["ts"] <= point["ts"]
+               <= s["ts"] + s.get("dur", 0) for s in spans)
+
+
+def chain_launches(events: list[dict]) -> set:
+    """The correlation ids of the kernels launched by the attention chain:
+    inside a CHAIN annotation (the forward), or by a backward op whose
+    sequence number is that of a forward op inside one (autograd's
+    backward of the chain, on its own thread)."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == CHAIN]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    seqs = {o.get("args", {}).get("Sequence number") for o in ops
+            if _within(o, spans)} - {None}
+    spans += [o for o in ops if "Fwd thread id" in o.get("args", {})
+              and o["args"].get("Sequence number") in seqs]
+    return {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime"
+            and "correlation" in e.get("args", {}) and _within(e, spans)}
+
+
+def profile_step(label: str, run, frames: int, chain: bool = False) -> dict:
     """Wall, device busy share and per-kernel device time of one call of
-    run() (a training step), after two warm-up calls."""
+    run() (a training step), after two warm-up calls. chain: the kernels
+    of the transformer's attention chain (mhsa.attend_reference, forward
+    and backward) are grouped apart as CHAIN."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -331,10 +388,27 @@ def profile_step(label: str, run, frames: int) -> dict:
     run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(run, 1, label.split()[0])
+    ids = set()
+    if chain:
+        real = mhsa.attend_reference
+
+        def marked(*args, **kw):
+            with torch.profiler.record_function(CHAIN):
+                return real(*args, **kw)
+
+        mhsa.attend_reference = marked
+        try:
+            every = device_events(run, 1, label.split()[0], keep_all=True)
+        finally:
+            mhsa.attend_reference = real
+        ids = chain_launches(every)
+        events = [e for e in every if e.get("cat") in DEVICE_CATS]
+    else:
+        events = device_events(run, 1, label.split()[0])
     split = {}
     for e in events:
-        name = kernel_group(e)
+        name = (CHAIN if e.get("args", {}).get("correlation") in ids
+                else kernel_group(e))
         ms, n = split.get(name, (0.0, 0))
         split[name] = (ms + e["dur"] / 1e3, n + 1)
     busy = busy_us(events) / 1e3
@@ -428,7 +502,9 @@ def profile_train(cfg, dev, name: str | None = None) -> dict:
     """One asr_step of `cfg` at the bench's train shape, and one lm_step at
     the LM task's shape when `cfg` has a phone task and an LSTM char
     decoder (the recipe's model; a GRU char decoder has no LM task), keyed
-    "lm_step" for the flagship and "<name>_lm_step" for a named step."""
+    "lm_step" for the flagship and "<name>_lm_step" for a named step. A
+    transformer encoder's attention chain is split apart (profile_step's
+    `chain`)."""
     V = cfg.decoders["char"].vocab_size
     lm_cfg = LMConfig(vocab_size=V,
                       lm_hidden_size=cfg.decoders["char"].lm_hidden_size)
@@ -449,7 +525,8 @@ def profile_train(cfg, dev, name: str | None = None) -> dict:
                     else "multitask_step")
     out = {name: profile_step(
         f"{name} B={chip_smoke.TRAIN_B} T={chip_smoke.TRAIN_T} "
-        f"L={chip_smoke.TRAIN_L}", one_asr, int(batch["logmel_len"].sum()))}
+        f"L={chip_smoke.TRAIN_L}", one_asr, int(batch["logmel_len"].sum()),
+        chain=cfg.encoder.encoder_type == "transformer")}
     if "phone" in cfg.tasks and cfg.decoders["char"].use_lstm:
         ids, lens, valid = (torch.as_tensor(a, device=dev) for a in
                             chip_smoke.lm_batch(np.random.default_rng(10),
@@ -501,6 +578,8 @@ def main() -> int:
     result.update(profile_train(chip_smoke.ctc_cfg(), dev, "ctc_step"))
     result.update(profile_joint_decode(dev))
     result.update(profile_train(chip_smoke.deep_cfg(), dev, "deep_step"))
+    result.update(profile_train(chip_smoke.transformer_cfg(), dev,
+                                "transformer_step"))
     text = json.dumps(result)
     if args.out:
         Path(args.out).write_text(text + "\n")
