@@ -68,6 +68,13 @@ Phases; any failure exits nonzero and prints no result line:
      deep decoder as #15's cases above; the deep branches of #8/#9 and of
      #10 (`-gru`) at B=128, 47 steps, 48 encoder frames, sampling on every
      other step and dropout with the inter-layer masks;
+   the rows of the redesigned recurrences (A's backward and #5 at both
+   shapes, #4's three forms) also give their time a step (us_per_step),
+   their ratio to cuDNN's time in the same run (library_ratio) and the
+   route of the launches they timed, from the plan the wrapper kept
+   (kernel_route: resident or streamed, with the backward's rows a cluster
+   and clusters, #4's blocks), and fail unless it is resident (H=256 and
+   1280); each main path below must take those resident routes alone;
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -437,12 +444,15 @@ class Recorder:
         self.rows = []
 
     def __call__(self, name, source, replaces, got, want, fn, ref, n, n_ref,
-                 work, library=None, **extra):
+                 work, library=None, steps=None, route=None, **extra):
         abs_err, rel_err, kind = self.hold(name, got, want)
+        ms = time_ms(fn, n)
+        launched = None if route is None else route()  # of the timed calls
         self.add(name, source, replaces, abs_err,
                  f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
-                 f"({kind})", time_ms(fn, n), time_ms(ref, n_ref, warmup=1),
-                 work, None if library is None else library(), **extra)
+                 f"({kind})", ms, time_ms(ref, n_ref, warmup=1),
+                 work, None if library is None else library(), steps,
+                 launched, **extra)
 
     @staticmethod
     def hold(name, got, want) -> tuple[float, float, str]:
@@ -464,20 +474,52 @@ class Recorder:
         return abs_err, rel_err, "relative" if name in RELATIVE else "absolute"
 
     def add(self, name, source, replaces, abs_err, note, ms, plain_ms, work,
-            library_ms, **extra):
-        """Print and keep a row whose error has been checked."""
+            library_ms, steps=None, route=None, **extra):
+        """Print and keep a row whose error has been checked; with `steps`
+        (a recurrence's time steps) also its time a step and, with a
+        library time, the ratio to it; with `route`, the hand-written
+        kernel's route that ran (kernel_route)."""
         bound_ms, bound_by = bound(*work)
         lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        if steps:
+            extra["us_per_step"] = ms / steps * 1e3
+            if library_ms:
+                extra["library_ratio"] = ms / library_ms
         print(f"kernel {name}: max_abs_err={abs_err:.3e} {note} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib}"
-              + "".join(f" {k}={v:.4f}" for k, v in extra.items()),
+              + "".join(f" {k}={v:.4f}" for k, v in extra.items())
+              + ("" if route is None else f" kernel_route=[{route}]"),
               flush=True)
         self.rows.append({"name": name, "route": "cuda", "source": source,
                           "replaces": replaces, "max_abs_err": abs_err,
                           "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms, **extra})
+                          "library_ms": library_ms, **extra,
+                          **({} if route is None
+                             else {"kernel_route": route})})
+
+
+def launched_walk(H: int) -> str:
+    """The route of kernel #2 / #5's last launch, from the plan its wrapper
+    kept: the route, the rows a cluster walks and the clusters beside what
+    the card holds at once. Fails unless the walk at H = 256 (the
+    flagship's width, which every row that reads this has) was resident."""
+    p = lstm_bidir.BWD_LAST_PLAN
+    if H == 256 and p.get("route") != "resident":
+        fail(f"kernel #2 / #5 did not take its resident route at H=256: {p}")
+    return (f"{p['route']}, {p['Rg']} rows x {p['S']} threads a lane, "
+            f"{p['n_dirs'] * p['groups']} clusters of 8 (the card holds "
+            f"{p['clusters']})")
+
+
+def launched_wide(H: int) -> str:
+    """The route of kernel #4's last launch, from the plan its wrapper
+    kept (its blocks). Fails unless it was resident at H = 1280."""
+    p = lstm_seq.WIDE_FWD_LAST_PLAN
+    if H == 1280 and p.get("route") != "resident":
+        fail(f"kernel #4 did not take its resident route at H=1280: {p}")
+    return f"{p['route']}, {p['blocks']} blocks of {p['units']} units"
 
 
 def cudnn_lstm_ms(x, lens, H, bidirectional, backward,
@@ -656,7 +698,8 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            "e2e_asr_tpu/ops/lstm_pallas.py:1381", got, plain_bidir(),
            lambda: lstm_bidir.lstm_bidir_bwd(*bw_args), plain_bidir, 5, 1,
            (2 * 3 * lstm_ops, nbytes(*bw_args, *got)),
-           lambda: cudnn_lstm_ms(x, lens, H, True, True))
+           lambda: cudnn_lstm_ms(x, lens, H, True, True), steps=T,
+           route=lambda: launched_walk(H))
     one_args = (wb, h_bw, c_bw, xb, g_bw, mask)
     got = lstm_bidir.lstm_bwd(*one_args)
     record("lstm_bwd", "e2e_asr_tpu_torch/csrc/lstm_bidir_bwd.cu",
@@ -665,7 +708,8 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_bwd(*one_args),
            lambda: lstm_bidir.lstm_bwd_reference(*one_args), 5, 1,
            (3 * lstm_ops, nbytes(*one_args, *got)),
-           lambda: cudnn_lstm_ms(x, lens, H, False, True))
+           lambda: cudnn_lstm_ms(x, lens, H, False, True), steps=T,
+           route=lambda: launched_walk(H))
 
 
 def check_dec_train(params, cfg, dev, record: Recorder, seed: int,
@@ -949,7 +993,8 @@ def check_lm_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_bwd(*bw_args),
            lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 10, 1,
            (3 * ops, nbytes(*bw_args, *got)),
-           lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True))
+           lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True), steps=T,
+           route=lambda: launched_walk(H))
 
 
 def gru_layer_case(params, cfg, dev, rng, T: int, B: int) -> dict:
@@ -1112,13 +1157,15 @@ def check_wide_lstm(params, cfg, dev, record: Recorder) -> None:
                    [lstm_seq.lstm_seq_reference(xp, w, m)],
                    lambda m=m: lstm_seq.lstm_seq(xp, w, m),
                    lambda m=m: lstm_seq.lstm_seq_reference(xp, w, m), 5, 1,
-                   (ops, nbytes(xp, w, m, *got)), cudnn)
+                   (ops, nbytes(xp, w, m, *got)), cudnn, steps=T,
+                   route=lambda: launched_wide(H))
         fwd = lstm_seq.lstm_seq_train(xp, w)
         record("lstm_seq_wide_train", src, chunked, fwd,
                lstm_seq.lstm_seq_reference(xp, w, save_c=True),
                lambda: lstm_seq.lstm_seq_train(xp, w),
                lambda: lstm_seq.lstm_seq_reference(xp, w, save_c=True), 5,
-               1, (ops, nbytes(xp, w, *fwd)), cudnn)
+               1, (ops, nbytes(xp, w, *fwd)), cudnn, steps=T,
+               route=lambda: launched_wide(H))
     h, c = fwd
     g = torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32),
                      device=dev)
@@ -1494,6 +1541,8 @@ def decode_rows(gru_decoder: bool) -> tuple[str, str]:
 def zero_launches() -> None:
     for module, counter in COUNTERS.values():
         setattr(module, counter, 0)
+    for routes in (lstm_bidir.BWD_ROUTES, lstm_seq.WIDE_FWD_ROUTES):
+        routes.update(dict.fromkeys(routes, 0))
     dec_train.DEPTHS.clear()
     dec_train_gru.DEPTHS.clear()
 
@@ -1506,6 +1555,19 @@ def read_launches(path: str, required) -> dict:
     for name in required:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {path} path")
+    # Every LSTM here at or below H = 296 (the flagship's 256) walks its
+    # backward (#2, #5) on the resident route, and the 1280-wide LM cell
+    # runs #4 on its resident route.
+    routes = {"lstm_bwd": dict(lstm_bidir.BWD_ROUTES),
+              "lstm_seq_wide": dict(lstm_seq.WIDE_FWD_ROUTES)}
+    print(f"routes in the {path} run: {json.dumps(routes)}", flush=True)
+    for kernel, rows in (("lstm_bwd", ("lstm_bidir_bwd", "lstm_bwd")),
+                         ("lstm_seq_wide", ("lstm_seq_wide_train",))):
+        if any(r in required for r in rows) and (
+                routes[kernel]["resident"] <= 0
+                or routes[kernel]["streamed"] > 0):
+            fail(f"the {path} path did not take {kernel}'s resident route "
+                 f"alone: {routes[kernel]}")
     return launches
 
 

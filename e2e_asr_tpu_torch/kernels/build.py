@@ -36,9 +36,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "e2e_lstm_bidir_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "e2e_lstm_bidir_fwd_train": [_P] * 9 + [_I, _I, _I, _P],
-    "e2e_lstm_bwd": [_P, _I, _I, _I, _I, _I, _P],
+    "e2e_lstm_bwd": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "e2e_lstm_bwd_plan": [_I, _I, _I, _P],
     "e2e_lstm_seq_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "e2e_lstm_wide_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "e2e_lstm_wide_fwd": [_P] * 5 + [_I] * 5 + [_P, _P],
+    "e2e_lstm_wide_fwd_plan": [_I, _P],
     "e2e_lstm_wide_bwd": [_P] * 10 + [_I, _I, _I, _P],
     "e2e_gru_fwd": [_P, _I, _I, _I, _I, _P],
     "e2e_gru_bwd": [_P, _I, _I, _I, _I, _I, _P],

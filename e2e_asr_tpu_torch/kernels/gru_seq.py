@@ -168,7 +168,7 @@ def _bwd_cuda(dirs, name: str):
             req(t, f"{name}[{i}].{n}", f32, (T, B, w), dev)
         if mask is not None:
             req(mask, f"{name}[{i}].mask", f32, (T, B, 1), dev)
-    tiles = -(-H // 64) * -(-2 * H // 64)
+    tiles = -(-H // 128) * -(-2 * H // 128)   # dW's tiles (csrc/dw.cuh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = max(1, min(64, -(-2 * sms // (tiles * 2 * len(dirs)))))
     new = lambda *shape: torch.empty(*shape, device=dev)  # noqa: E731

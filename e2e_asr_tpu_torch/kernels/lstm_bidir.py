@@ -10,20 +10,26 @@ Bound on the H100: the recurrence. Each of the T steps needs the whole
 previous h, so a chain is serial in time, and at the flagship width
 (H=256) every step reads all of W_h, [256, 1024] f32 = 1 MiB per direction,
 about 2 MFLOP per batch row. W_h is larger than a block's 227 KB of shared
-memory, so it is read through L2 every step: the kernel is bound by one SM's
-L2 bandwidth, about 1 MiB per step (2 MiB in the backward, which also
-recomputes the gates).
+memory, so the forward reads it through L2 every step: it is bound by one
+SM's L2 bandwidth, about 1 MiB per step.
 
-Design: one block per chain (batch row x direction, 2B blocks), the time
-loop inside the block, h in shared memory and c in registers. Each hidden
-unit's four gate columns of W_h are read by 4 threads, each over a quarter
-of the reduction depth, so that 4x more loads are in flight; the quarters
-meet in shared memory (two __syncthreads per step). The directions and
-batch rows are independent chains on separate SMs. The backward walks time
-in reverse the same way and leaves dW_h = sum h_{t-1}^T dgates to a tiled
-reduction over the T*B rows (see the CUDA source). Spreading W_h over the
-shared memory of a cluster or a cooperative grid (so that no SM rereads it
-from L2) is later work.
+Design: the forward is one block per chain (batch row x direction, 2B
+blocks), the time loop inside the block, h in shared memory and c in
+registers. Each hidden unit's four gate columns of W_h are read by 4
+threads, each over a quarter of the reduction depth, so that 4x more loads
+are in flight; the quarters meet in shared memory (two __syncthreads per
+step). The backward (see the CUDA source) computes every step's gate
+pre-activations in one tiled product, then walks time in reverse with a
+cluster of 8 blocks per group of batch rows of a direction (20 rows at
+layer 1): W_h split over the cluster's shared memory by units (the
+"resident" route, H <= 296) or streamed from a re-laid copy each step (the
+"streamed" route, wider); each block multiplies its slice of dgates by its
+own columns of W_h into a share of dh for every unit, and after one cluster
+barrier a step sums its units' shares through distributed shared memory;
+dW_h = sum h_{t-1}^T dgates is a tiled reduction over the T*B rows. The
+CUDA source chooses the route and the rows (`bwd_plan` reads them);
+`BWD_ROUTES` counts the routes taken and `BWD_LAST_PLAN` keeps the plan of
+the last launch.
 
 Semantics kept from the reference: the backward direction runs on the
 time-flipped input, where padding leads, and carries its state through steps
@@ -37,6 +43,9 @@ the CPU.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from e2e_asr_tpu_torch.core.cells import _lstm_apply_gates
@@ -46,9 +55,32 @@ LAUNCHES = 0               # inference forward
 TRAIN_LAUNCHES = 0         # training forward (also writes c)
 BWD_LAUNCHES = 0           # backward, both directions in one launch
 BWD_SINGLE_LAUNCHES = 0    # backward, one direction
+# Backward launches by the walk's route (`bwd_plan`), both forms together.
+BWD_ROUTES = {"resident": 0, "streamed": 0}
+BWD_LAST_PLAN: dict = {}   # the last backward launch's plan and n_dirs
 # The widest layer the forward and backward kernels take: a block holds one
-# thread per unit (csrc/lstm_bidir.cu, csrc/lstm_bidir_bwd.cu).
+# thread per unit (csrc/lstm_bidir.cu); the backward's streamed walk takes
+# up to the same width (csrc/lstm_bidir_bwd.cu).
 MAX_H = 1024
+_PLAN_KEYS = ("resident", "Rg", "groups", "U", "S", "thr", "smem",
+              "clusters")
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(H: int, B: int, n_dirs: int, device_index: int) -> dict:
+    """The backward walk's plan on the card, as csrc/lstm_bidir_bwd.cu
+    chooses it (e2e_lstm_bwd_plan): the route ("resident": a block keeps
+    its own gate columns of W_h in shared memory; "streamed": it brings
+    them in every step), Rg rows a cluster walks in `groups` row groups, U
+    units a block, S threads a product lane, thr threads and smem bytes of
+    shared memory a block, and the clusters the card holds at once."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = build.library().e2e_lstm_bwd_plan(H, B, n_dirs, out)
+    build.check(err, "lstm_bwd_plan")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["route"] = "resident" if plan.pop("resident") else "streamed"
+    return plan
 
 
 def check_width(H: int, name: str = "lstm_seq_bidir") -> None:
@@ -160,22 +192,30 @@ def lstm_seq_bidir_train(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw):
 def _bwd_cuda(dirs, T, B, H, dev):
     """One launch of the backward for 1 or 2 directions; dirs: tuples
     (w_h, h, c, x_proj, g, mask|None). Returns [(dx, dw)] per direction."""
+    global BWD_LAST_PLAN
     check_width(H, "lstm_bwd")
-    tiles = -(-4 * H // 64) * -(-H // 64)
+    plan = bwd_plan(H, B, len(dirs), dev.index)
+    tiles = -(-4 * H // 128) * -(-H // 128)   # dW_h's tiles (csrc/dw.cuh)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(64, -(-2 * sms // (tiles * len(dirs)))))
+    # dW_h's row splits: one wave of its 2-blocks-an-SM grid
+    splits = max(1, min(64, 2 * sms // (tiles * len(dirs))))
     out, ptr_list = [], []
     for w, h, c, xp, g, mask in dirs:
         dx = torch.empty(T, B, 4 * H, device=dev)
         dw = torch.empty(H, 4 * H, device=dev)
         part = torch.empty(splits, H, 4 * H, device=dev)
-        ptr_list += [w, h, c, xp, g, mask, dx, dw, part]
+        # W_h in the walk's layout: [8 blocks][4U gate columns][8U depths]
+        wt = torch.empty(256 * plan["U"] ** 2, device=dev)
+        ptr_list += [w, h, c, xp, g, mask, dx, dw, part, wt]
         out.append((dx, dw))
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.e2e_lstm_bwd(build.ptrs(*ptr_list), len(dirs), T, B, H,
-                               splits, build.stream_ptr(dev))
+                               splits, int(plan["route"] == "resident"),
+                               plan["Rg"], build.stream_ptr(dev))
     build.check(err, "lstm_bwd")
+    BWD_ROUTES[plan["route"]] += 1
+    BWD_LAST_PLAN = {**plan, "n_dirs": len(dirs)}
     return out
 
 

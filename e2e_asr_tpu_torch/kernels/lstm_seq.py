@@ -20,10 +20,14 @@ Design: #3 is kernel A's chain for one direction (`csrc/lstm_fwd.cuh`):
 one block per batch row, the time loop inside the block, h in shared memory
 and c in registers; at the LM task's B=128 the 128 chains fit one wave on
 the 132 SMs. It caps H at 1024 (a block's threads). #4 is one persistent
-cooperative launch over all steps: each tile owns 8 hidden units and their
-four gate columns for 128 rows, streams those W_h columns and h_{t-1}
-through shared memory (double-buffered), and updates the cell in place; a
-grid barrier between steps. #5's wide form recomputes the gates of every
+cooperative launch over all steps with a grid barrier between steps, by one
+of two routes, which the CUDA source chooses by H (`wide_fwd_plan` reads
+it; counted in `WIDE_FWD_ROUTES`): "resident", where each of ceil(H / 10)
+blocks keeps W_h's columns of 10 units in shared memory for the whole
+sequence and brings h_{t-1} in through cp.async rings (1056 <= H <= 1280
+on the H100), and "streamed" (wider), where each
+tile of 8 units x 128 rows streams its W_h columns and h_{t-1} through
+shared memory every step. #5's wide form recomputes the gates of every
 step in one pass, then walks time in reverse: dh_{t-1} = dgates_t W_h^T
 split by gate into four partial sums, then step t-1's cell backward, two
 grid barriers a step. Both take H in multiples of 32.
@@ -33,6 +37,9 @@ inside `_LSTMSeq`, whose backward is kernel #5 or its wide form on the card
 and `lstm_bwd_reference` on the CPU.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -47,6 +54,23 @@ WIDE_LAUNCHES = 0          # #4, the same three forms
 WIDE_MASKED_LAUNCHES = 0
 WIDE_TRAIN_LAUNCHES = 0
 WIDE_BWD_LAUNCHES = 0      # #5's wide form
+WIDE_FWD_ROUTES = {"resident": 0, "streamed": 0}   # #4's launches by route
+WIDE_FWD_LAST_PLAN: dict = {}   # the plan of #4's last launch
+WIDE_ROW_TILE = 128   # rows of a tile of the resident route's h scratch
+
+
+@functools.lru_cache(maxsize=None)
+def wide_fwd_plan(H: int, device_index: int) -> dict:
+    """#4's route at width H on the card, as csrc/lstm_seq_wide.cu chooses
+    it (e2e_lstm_wide_fwd_plan): "resident" where `blocks` blocks of
+    `units` units each keep W_h's columns of their units in `smem` bytes of
+    shared memory in one wave, else "streamed"."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        err = build.library().e2e_lstm_wide_fwd_plan(H, out)
+    build.check(err, "lstm_seq_wide_plan")
+    return {"route": "resident" if out[0] else "streamed",
+            "blocks": out[1], "units": out[2], "smem": out[3]}
 
 
 def lstm_seq_reference(x_proj, w_h, mask=None, save_c: bool = False):
@@ -70,6 +94,7 @@ def lstm_seq_reference(x_proj, w_h, mask=None, save_c: bool = False):
 
 def _launch(x_proj, w_h, mask, save_c: bool) -> torch.Tensor:
     """One launch of the kernel: [1 or 2, T, B, H] = h (and c)."""
+    global WIDE_FWD_LAST_PLAN
     dev = x_proj.device
     if dev.type != "cuda":
         raise ValueError(f"lstm_seq: unsupported device {dev}")
@@ -89,16 +114,24 @@ def _launch(x_proj, w_h, mask, save_c: bool) -> torch.Tensor:
         if H > WIDE:
             _check_wide(H)
             c = out[1] if save_c else torch.empty(B, H, device=dev)
+            plan = wide_fwd_plan(H, dev.index)
+            route = plan["route"]
+            ht = (torch.empty(2, -(-B // WIDE_ROW_TILE), H, WIDE_ROW_TILE,
+                              device=dev) if route == "resident" else None)
             err = lib.e2e_lstm_wide_fwd(
                 x_proj.data_ptr(), w_h.data_ptr(), mask_ptr,
                 out[0].data_ptr(), c.data_ptr(), int(save_c), T, B, H,
-                build.stream_ptr(dev))
+                int(route == "resident"),
+                None if ht is None else ht.data_ptr(), build.stream_ptr(dev))
         else:
             err = lib.e2e_lstm_seq_fwd(
                 x_proj.data_ptr(), w_h.data_ptr(), mask_ptr,
                 out[0].data_ptr(), out[1].data_ptr() if save_c else None, T,
                 B, H, build.stream_ptr(dev))
     build.check(err, "lstm_seq_wide" if H > WIDE else "lstm_seq")
+    if H > WIDE:
+        WIDE_FWD_ROUTES[route] += 1
+        WIDE_FWD_LAST_PLAN = plan
     return out
 
 

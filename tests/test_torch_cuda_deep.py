@@ -162,8 +162,10 @@ def test_deep_decoder_envelope_raises(cuda, use_lstm):
             torch.ones(1, S, B, D, device=cuda))
 
 
+# (H, T, B, masked): #4's resident route (1088, 1280; B = 130 takes two row
+# tiles, T = 1 no recurrent product) and its streamed route (2048).
 WIDE = [(1088, 40, 16, True), (1280, 24, 128, True), (1280, 12, 16, False),
-        (2048, 10, 32, True)]
+        (2048, 10, 32, True), (1280, 7, 130, True), (1280, 1, 16, False)]
 
 
 @pytest.mark.cuda
@@ -181,6 +183,7 @@ def test_wide_lstm_forward_forms(cuda, H, T, B, masked):
     before = (lstm_seq.WIDE_LAUNCHES, lstm_seq.WIDE_MASKED_LAUNCHES,
               lstm_seq.WIDE_TRAIN_LAUNCHES, lstm_seq.LAUNCHES,
               lstm_seq.MASKED_LAUNCHES, lstm_seq.TRAIN_LAUNCHES)
+    routes = dict(lstm_seq.WIDE_FWD_ROUTES)
     with torch.no_grad():
         h = lstm_seq.lstm_seq(x, w, mask)
     h_t, c_t = lstm_seq.lstm_seq_train(x, w, mask)
@@ -190,6 +193,10 @@ def test_wide_lstm_forward_forms(cuda, H, T, B, masked):
              lstm_seq.MASKED_LAUNCHES, lstm_seq.TRAIN_LAUNCHES)
     assert np.subtract(after, before).tolist() == [
         int(not masked), int(masked), 1, 0, 0, 0]
+    route = "resident" if H <= 1280 else "streamed"
+    assert lstm_seq.WIDE_FWD_LAST_PLAN["route"] == route
+    assert {k: v - routes[k] for k, v in lstm_seq.WIDE_FWD_ROUTES.items()} == {
+        r: 2 * (r == route) for r in routes}
     want_h, want_c = lstm_seq.lstm_seq_reference(x, w, mask, save_c=True)
     _close([h, h_t, c_t], [want_h, want_h, want_c])
 
@@ -219,6 +226,42 @@ def test_wide_lstm_backward(cuda, H, T, B, masked):
     grads = torch.autograd.grad(out, (xs, ws), g)
     assert lstm_seq.WIDE_BWD_LAUNCHES == before + 2
     _close(grads, want, names=["dx", "dw"])
+
+
+@pytest.mark.cuda
+def test_wide_forward_plan_covers_every_unit_once(cuda):
+    """#4's route as csrc/lstm_seq_wide.cu chooses it, for every width it
+    accepts up to 8192: the resident route's blocks own every unit once,
+    in one wave on the card's SMs, each within 232,448 B of shared memory;
+    on the H100 W_h stays resident from H = 1056 up to 1280 and is streamed
+    above."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for H in range(1056, 8193, 32):
+        plan = lstm_seq.wide_fwd_plan(H, cuda.index or 0)
+        blocks, units = plan["blocks"], plan["units"]
+        assert (blocks - 1) * units < H <= blocks * units, (H, plan)
+        if plan["route"] == "resident":
+            assert plan["smem"] <= 232448 and blocks <= sms, (H, plan)
+        if sms == 132:
+            assert plan["route"] == ("resident" if H <= 1280
+                                     else "streamed"), H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1280, 2048])
+def test_wide_lstm_is_bitwise_deterministic(cuda, H):
+    """Two calls of #4 (either route) give the same h and c, and two of #5's
+    wide form with its dW the same dx and dW_h."""
+    rng = np.random.default_rng(H + 1)
+    T, B = 6, 24
+    x = _rand(rng, T, B, 4 * H, device=cuda)
+    w = _rand(rng, H, 4 * H, scale=1.0 / np.sqrt(H), device=cuda)
+    first, second = (lstm_seq.lstm_seq_train(x, w) for _ in range(2))
+    g = _rand(rng, T, B, H, device=cuda)
+    bwd = [lstm_seq.lstm_bwd_wide(w, *first, x, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
 
 
 @pytest.mark.cuda

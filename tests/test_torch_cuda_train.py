@@ -56,9 +56,20 @@ def _lstm_inputs(rng, T, B, H, dev):
             torch.tensor(mask[:, :, None], device=dev)]
 
 
+# (T, B, H, masked): both sides of the backward's resident / streamed route
+# (H = 40, 256 | 320, 1024), ragged row groups (B = 1, 17, 128; B = 300
+# walks 32 rows a cluster, one thread a product lane), T = 1, the
+# one-direction form with and without its carry mask, and T*B = 8,454,015
+# rows, more than 65535 of the gate product's 128-row tiles.
+LSTM_CASES = [(64, 5, 40, True), (16, 8, 256, True), (12, 17, 256, False),
+              (1, 128, 256, True), (10, 1, 40, False), (6, 17, 320, True),
+              (5, 128, 320, False), (4, 3, 1024, True), (1, 1, 1024, False),
+              (3, 300, 256, True), (129, 65535, 4, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(64, 5, 40), (16, 8, 256)])
-def test_lstm_training_forward_and_backward(cuda, T, B, H):
+@pytest.mark.parametrize("T,B,H,masked", LSTM_CASES)
+def test_lstm_training_forward_and_backward(cuda, T, B, H, masked):
     rng = np.random.default_rng(0)
     xf, xb, wf, wb, mask = _lstm_inputs(rng, T, B, H, cuda)
     before = lstm_bidir.TRAIN_LAUNCHES
@@ -72,17 +83,69 @@ def test_lstm_training_forward_and_backward(cuda, T, B, H):
     h_fw, h_bw, c_fw, c_bw = want
     g_fw, g_bw = _rand(rng, T, B, H, device=cuda), _rand(rng, T, B, H,
                                                           device=cuda)
+    one_mask = mask if masked else None
     counts = (lstm_bidir.BWD_LAUNCHES, lstm_bidir.BWD_SINGLE_LAUNCHES)
+    routes = dict(lstm_bidir.BWD_ROUTES)
     both = lstm_bidir.lstm_bidir_bwd(wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw,
                                      xb, g_bw, mask)
-    single = lstm_bidir.lstm_bwd(wb, h_bw, c_bw, xb, g_bw, mask)
+    single = lstm_bidir.lstm_bwd(wb, h_bw, c_bw, xb, g_bw, one_mask)
     torch.cuda.synchronize()
     assert (lstm_bidir.BWD_LAUNCHES,
             lstm_bidir.BWD_SINGLE_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    route = "resident" if H <= 296 else "streamed"
+    assert lstm_bidir.BWD_LAST_PLAN["route"] == route
+    assert {k: lstm_bidir.BWD_ROUTES[k] - routes[k] for k in routes} == {
+        r: 2 * (r == route) for r in routes}
     ref_fw = lstm_bidir.lstm_bwd_reference(wf, h_fw, c_fw, xf, g_fw)
     ref_bw = lstm_bidir.lstm_bwd_reference(wb, h_bw, c_bw, xb, g_bw, mask)
     _close(both, (*ref_fw, *ref_bw))
-    _close(single, ref_bw)
+    _close(single, lstm_bidir.lstm_bwd_reference(wb, h_bw, c_bw, xb, g_bw,
+                                                 one_mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 320])
+def test_lstm_backward_is_bitwise_deterministic(cuda, H):
+    """Two calls of either backward form on the same inputs give the same
+    bits (dx, dW_h): fixed-order sums, no atomics, on either route."""
+    rng = np.random.default_rng(H)
+    T, B = 9, 33
+    xf, xb, wf, wb, mask = _lstm_inputs(rng, T, B, H, cuda)
+    h_fw, h_bw, c_fw, c_bw = lstm_bidir.lstm_seq_bidir_train(xf, xb, wf, wb,
+                                                             mask)
+    g_fw, g_bw = _rand(rng, T, B, H, device=cuda), _rand(rng, T, B, H,
+                                                          device=cuda)
+    args = (wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw, xb, g_bw, mask)
+    one = (wb, h_bw, c_bw, xb, g_bw, mask)
+    for run in (lambda: lstm_bidir.lstm_bidir_bwd(*args),
+                lambda: lstm_bidir.lstm_bwd(*one)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_lstm_backward_plan_covers_every_unit_and_row_once(cuda):
+    """The walk's plan as csrc/lstm_bidir_bwd.cu chooses it, for every H
+    the backward accepts: the 8 blocks of a cluster own ceil(H / 8) units
+    each, so every unit and gate column once; the row groups cover B once;
+    a block fits 232,448 B of shared memory and holds its product lanes (4
+    rows x 4 units each, S threads a lane) and its (row, unit) pairs, two
+    a lane; W_h stays resident exactly up to H = 296; at the flagship's
+    B = 128 both directions' clusters fit the card at once up to H = 256."""
+    for H in range(1, lstm_bidir.MAX_H + 1):
+        for B, n_dirs in ((1, 1), (17, 2), (128, 2), (128, 1), (4096, 2)):
+            plan = lstm_bidir.bwd_plan(H, B, n_dirs, cuda.index or 0)
+            U, Rg, groups = plan["U"], plan["Rg"], plan["groups"]
+            lanes = Rg // 4 * 2 * U
+            assert 8 * (U - 1) < H <= 8 * U, (H, plan)
+            assert Rg % 4 == 0 and (groups - 1) * Rg < B <= groups * Rg
+            assert plan["smem"] <= 232448 and Rg * U <= 2 * lanes
+            assert plan["S"] * lanes <= plan["thr"], (H, B, plan)
+            assert plan["route"] == ("resident" if H <= 296 else "streamed")
+            assert plan["S"] == 1 or plan["route"] == "resident"
+            if H <= 256 and B == 128:
+                assert n_dirs * groups <= plan["clusters"], (H, plan)
 
 
 def _dec_inputs(rng, dev, S=7, B=12, G=40, D=40, M=24, E=48, A=20, V=11,

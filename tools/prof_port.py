@@ -319,7 +319,8 @@ def profile_one_utterance(params, cfg, dev) -> dict:
 
 
 # The port's kernels by name; a name that contains another comes first.
-OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
+OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_walk_kernel",
+               "lstm_bwd_gates_kernel", "lstm_bwd_layout_kernel",
                "dw_partial_kernel", "dw_sum_kernel", "dec_train_fwd_kernel",
                "dec_train_bwd_kernel", "lstm_seq_fwd_kernel",
                "dec_train_gru_fwd_kernel", "dec_train_gru_bwd_kernel",
@@ -328,22 +329,24 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_chain_kernel",
                "beam_mega_kernel", "attn_output_kernel",
                "transducer_fwd_kernel", "transducer_bwd_kernel",
                "ctc_prefix_kernel", "lstm_wide_fwd_kernel",
-               "lstm_wide_bwd_kernel", "mhsa_fwd_kernel")
+               "lstm_wide_fwd_resident_kernel", "lstm_wide_bwd_kernel",
+               "mhsa_fwd_kernel")
 # PyTorch's own kernels by what they compute (the rest is "other").
 TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
 
 
 def kernel_group(event: dict) -> str:
-    """The split's key for a device event: its kernel's name, the
-    backward chain kernel by direction count (its grid's y: 2 for A's
-    backward, 1 for #5, a forward-only layer's or the prediction
-    network's)."""
+    """The split's key for a device event: its kernel's name; the
+    backward's walk and gate product (csrc/lstm_bidir_bwd.cu) by direction
+    count (the walk's grid y, the product's grid z: 2 for A's backward, 1
+    for #5, a forward-only layer's or the prediction network's)."""
     name = event["name"]
     own = next((k for k in OWN_KERNELS if k in name), None)
-    if own == "lstm_bwd_chain_kernel":
+    if own in ("lstm_bwd_walk_kernel", "lstm_bwd_gates_kernel"):
         grid = event.get("args", {}).get("grid")
         if grid:
-            dirs = "both directions" if grid[1] > 1 else "one direction"
+            axis = 1 if own == "lstm_bwd_walk_kernel" else 2
+            dirs = "both directions" if grid[axis] > 1 else "one direction"
             return f"{own} ({dirs})"
     if own is not None:
         return own
