@@ -63,18 +63,22 @@ Phases; any failure exits nonzero and prints no result line:
      two-layer char decoder, 1280-wide LM cells through SimpleProjection
      and ind_softmax): kernel #4 in its inference, masked and training
      forms and #5's wide form (the kernel and the dW matmul beside it
-     timed apart) at the LM task's shape with H=1280 (B=128, T=120,
-     lengths 24-120), beside cuDNN's unidirectional nn.LSTM; #15 on the
+     timed apart, and split by device time into the gate pre-pass, the
+     walk and the dW matmul) at the LM task's shape with H=1280 (B=128,
+     T=120, lengths 24-120), without and with the lengths' carry mask
+     (lstm_bwd_wide_masked), beside cuDNN's unidirectional nn.LSTM; #15 on the
      deep decoder as #15's cases above; the deep branches of #8/#9 and of
      #10 (`-gru`) at B=128, 47 steps, 48 encoder frames, sampling on every
      other step and dropout with the inter-layer masks;
    the rows of the redesigned recurrences (A's backward and #5 at both
-   shapes, #4's three forms) also give their time a step (us_per_step),
-   their ratio to cuDNN's time in the same run (library_ratio) and the
-   route of the launches they timed, from the plan the wrapper kept
-   (kernel_route: resident or streamed, with the backward's rows a cluster
-   and clusters, #4's blocks), and fail unless it is resident (H=256 and
-   1280); each main path below must take those resident routes alone;
+   shapes, #4's three forms, #5's wide form) also give their time a step
+   (us_per_step) and the route of the launches they timed, from the plan
+   the wrapper kept (kernel_route: resident or streamed, with the
+   backward's rows a cluster and clusters, #4's blocks, #5-wide's clusters
+   of 2 blocks), and fail unless it is resident (H=256 and 1280);
+   every row with a library time gives its ratio to it in the same run
+   (library_ratio); each main path below must take those resident routes
+   alone (and #18 its on-chip route);
 4. serving: the flagship model (4-layer pyramidal BiLSTM, H=256, feat 80;
    1-layer LSTM attention decoder, V=40; random weights from seed 0)
    serves 24 requests through BatchingTranscriber (max_batch 8, beam 4,
@@ -184,29 +188,33 @@ Phases; any failure exits nonzero and prints no result line:
    utterance) and `-test -beam_size 4` at 64 (the per-step route); (e)
    phase 4's serving burst on the deep model, and one batch decoded on
    the card equal to the CPU's up to near-ties.
-14. the transformer encoder family (`-encoder_type transformer -num_heads
-   4 -ffn_mult 4 -enc_subsample 8`: bench.py's `_measure_transformer`, 4
-   blocks at d_model 512 under the flagship's char and phone LSTM
-   decoders; transformer_cfg) with kernel #18, the encoder's
-   self-attention core, which runs in inference when E2E_ASR_MHSA_KERNEL
-   is set (as in the JAX package): (a) #18 against its plain version at
-   B=8, T'=64 without and with the relative-position matrix and at B=64,
-   T'=48 (ragged lengths, one zero-length row, whose probs must be
-   uniform), within 1e-5, beside scaled_dot_product_attention on the same
-   out; (b) one char + phone asr_step at B=16 on the card and on the CPU,
-   for this form and one with rel_pos_bias and a conv module of kernel 15,
-   must agree (phase 5's tolerances); (c) three steps of each at B=128,
-   T=384, L=48, every loss finite, #8/#9 launched and neither #18 nor a
-   recurrent encoder's kernel, their times and frames/s, and the step's
-   device split (tools/prof_port.py: matmuls, the attention chain, the
-   rest); (d) the Trainer on phase 6's corpus with the LM task (train,
-   greedy dev WER, save, exact resume); (e) `cli.main` with those flags and
-   the gate set: train (the xfmr_4h_ run directory), `-dev -beam_size 4
-   -buck_batch_sizes 1` (one #15 launch an utterance) and `-test
-   -beam_size 4` at 64, each launching #18; (f) phase 4's serving burst
-   with the gate on (#18 launched) and off (not), and its three batches
-   of 8, and one batch of the rel + conv-15 form, decoded with the gate on
-   and off, equal up to near-ties (< 1e-3).
+14. the transformer encoder family (`-encoder_type transformer -num_heads 4
+   -ffn_mult 4 -enc_subsample 8`: bench.py's `_measure_transformer`, 4
+   blocks at d_model 512 under the flagship's char and phone LSTM decoders;
+   transformer_cfg) with kernel #18, the encoder's self-attention core,
+   which runs in inference when E2E_ASR_MHSA_KERNEL is set (as in the JAX
+   package): (a) #18 against its plain version at B=8, T'=64 without and
+   with the relative-position matrix and at B=64, T'=48 (ragged lengths,
+   one zero-length row, whose probs must be uniform), within 1e-5, in both
+   forms: the out-only form (the encoder's call; rows mhsa, mhsa_rel,
+   mhsa_test) beside scaled_dot_product_attention on the same out, and the
+   probs form (rows *_probs) beside the plain chain, the out-only form's
+   out equal to the probs form's bit for bit; device times a call from a
+   CUDA graph of 50 calls, and each form's route; (b) one char + phone
+   asr_step at B=16 on the card and on the CPU, for this form and one with
+   rel_pos_bias and a conv module of kernel 15, must agree (phase 5's
+   tolerances); (c) three steps of each at B=128, T=384, L=48, every loss
+   finite, #8/#9 launched and neither #18 nor a recurrent encoder's kernel,
+   their times and frames/s, and the step's device split
+   (tools/prof_port.py: matmuls, the attention chain, the rest); (d) the
+   Trainer on phase 6's corpus with the LM task (train, greedy dev WER,
+   save, exact resume); (e) `cli.main` with those flags and the gate set:
+   train (the xfmr_4h_ run directory), `-dev -beam_size 4 -buck_batch_sizes
+   1` (one #15 launch an utterance) and `-test -beam_size 4` at 64, each
+   launching #18; (f) phase 4's serving burst with the gate on (#18
+   launched) and off (not), and its three batches of 8, and one batch of
+   the rel + conv-15 form, decoded with the gate on and off, equal up to
+   near-ties (< 1e-3).
 Each main-path run (serving, ASR training, LM + multitask, recipe, each
 entry-point run, the GRU runs, the #13 runs, the transducer runs, the CTC
 and hybrid runs, the deep decoders' runs, the transformer's runs) counts
@@ -215,8 +223,8 @@ from zero; a row's
 `launches` in the kernels line is their sum over those runs. The line before the last is a JSON object with
 the per-kernel numbers; the last line is {"ok": true, "device": {...}}.
 float32 throughout, TF32 off. No phase runs at a cut depth: the whole run
-took 244 s on the card with the transformer's phase (about 27 s of it),
-the build included.
+takes some 4 to 6 minutes on an H100, the build included; the script
+prints its total.
 """
 from __future__ import annotations
 
@@ -274,10 +282,13 @@ TOL = {"lstm_bidir": 1e-4, "cells_fused": 1e-4, "output_fused": 1e-4,
        "lstm_seq_wide_train": 1e-4, "lstm_bwd_wide": 1e-4,
        "dec_train_fwd_deep": 1e-4, "dec_train_bwd_deep": 1e-4,
        "dec_train_gru_fwd_deep": 1e-4, "dec_train_gru_bwd_deep": 1e-4,
-       "mhsa": 1e-5, "mhsa_rel": 1e-5, "mhsa_test": 1e-5}
+       "lstm_bwd_wide_masked": 1e-4,
+       "mhsa": 1e-5, "mhsa_rel": 1e-5, "mhsa_test": 1e-5, "mhsa_probs": 1e-5,
+       "mhsa_rel_probs": 1e-5, "mhsa_test_probs": 1e-5}
 RELATIVE = {"lstm_bidir_bwd", "lstm_bwd", "dec_train_bwd", "lstm_bwd_lm",
             "gru_bidir_bwd", "gru_bwd", "dec_train_gru_bwd",
-            "dec_train_gru_bwd_phone", "lstm_bwd_wide", "dec_train_bwd_deep",
+            "dec_train_gru_bwd_phone", "lstm_bwd_wide", "lstm_bwd_wide_masked",
+            "dec_train_bwd_deep",
             "dec_train_gru_bwd_deep"}
 NEAR_TIE = 1e-3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 (no tensor cores)
@@ -332,6 +343,29 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(n):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int) -> float:
+    """Per-call time of n calls of fn replayed from one captured CUDA graph:
+    the device's time without the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
@@ -444,13 +478,17 @@ class Recorder:
         self.rows = []
 
     def __call__(self, name, source, replaces, got, want, fn, ref, n, n_ref,
-                 work, library=None, steps=None, route=None, **extra):
+                 work, library=None, steps=None, route=None, timer=None,
+                 **extra):
+        """timer(fn, n): the time a call (CUDA events by default)."""
         abs_err, rel_err, kind = self.hold(name, got, want)
-        ms = time_ms(fn, n)
+        ms = time_ms(fn, n) if timer is None else timer(fn, n)
         launched = None if route is None else route()  # of the timed calls
         self.add(name, source, replaces, abs_err,
                  f"max_rel_err={rel_err:.3e} tolerance={TOL[name]:.0e} "
-                 f"({kind})", ms, time_ms(ref, n_ref, warmup=1),
+                 f"({kind})", ms,
+                 time_ms(ref, n_ref, warmup=1) if timer is None
+                 else timer(ref, n_ref),
                  work, None if library is None else library(), steps,
                  launched, **extra)
 
@@ -483,8 +521,8 @@ class Recorder:
         lib = "none" if library_ms is None else f"{library_ms:.4f}"
         if steps:
             extra["us_per_step"] = ms / steps * 1e3
-            if library_ms:
-                extra["library_ratio"] = ms / library_ms
+        if library_ms:
+            extra["library_ratio"] = ms / library_ms
         print(f"kernel {name}: max_abs_err={abs_err:.3e} {note} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={lib}"
@@ -520,6 +558,18 @@ def launched_wide(H: int) -> str:
     if H == 1280 and p.get("route") != "resident":
         fail(f"kernel #4 did not take its resident route at H=1280: {p}")
     return f"{p['route']}, {p['blocks']} blocks of {p['units']} units"
+
+
+def launched_wide_bwd(H: int) -> str:
+    """The walk of #5-wide's last launch, from the plan its wrapper kept.
+    Fails unless it was resident at H = 1280."""
+    p = lstm_seq.WIDE_BWD_LAST_PLAN
+    if H == 1280 and p.get("route") != "resident":
+        fail(f"#5's wide form did not take its resident walk at H=1280: {p}")
+    if p["route"] != "resident":
+        return p["route"]
+    return (f"resident, {p['clusters']} clusters of {p['cluster']} blocks "
+            f"of {p['units']} units (the card holds {p['held']})")
 
 
 def cudnn_lstm_ms(x, lens, H, bidirectional, backward,
@@ -1131,8 +1181,11 @@ def check_wide_lstm(params, cfg, dev, record: Recorder) -> None:
     """Phase 3, kernel #4 (inference, masked and training forms) and #5's
     wide form at the LM task's shape over deep_cfg's LM cell (B=128,
     T=120, lengths 24-120, H=1280), beside cuDNN's unidirectional nn.LSTM;
-    #5's wide form with its kernel and the dW matmul beside it timed
-    apart."""
+    #5's wide form without and with the lengths' carry mask (whose padded
+    steps are zero), its kernel and the dW matmul beside it timed apart and
+    split into the gate pre-pass, the walk and the dW matmul by device
+    time (wide_bwd_split), its route printed: the run fails unless the
+    walk at H=1280 is resident."""
     rng = np.random.default_rng(16)
     dec, dcfg = params["decoder_char"], cfg.decoders["char"]
     T, B, H, E = LM_T, LM_B, dcfg.lm_hidden_size, dcfg.emb_size
@@ -1166,22 +1219,44 @@ def check_wide_lstm(params, cfg, dev, record: Recorder) -> None:
                lambda: lstm_seq.lstm_seq_reference(xp, w, save_c=True), 5,
                1, (ops, nbytes(xp, w, *fwd)), cudnn, steps=T,
                route=lambda: launched_wide(H))
-    h, c = fwd
     g = torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32),
                      device=dev)
-    bw_args = (w, h, c, xp, g)
-    got = lstm_seq.lstm_bwd_wide(*bw_args)
-    kernel_ms = time_ms(lambda: lstm_seq.lstm_bwd_wide_dx(*bw_args), 5)
-    dw_ms = time_ms(lambda: lstm_seq.wide_dw(h, got[0]), 5)
     # Gates recompute, dh_{t-1} and dW_h: three [H, 4H] products a
-    # row-step; ms is the kernel and the dW matmul together.
-    record("lstm_bwd_wide", src, "e2e_asr_tpu/ops/lstm_pallas.py:975", got,
-           lstm_bidir.lstm_bwd_reference(*bw_args),
-           lambda: lstm_seq.lstm_bwd_wide(*bw_args),
-           lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 5, 1,
-           (3 * ops, nbytes(*bw_args, *got)),
-           lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True),
-           kernel_ms=kernel_ms, dw_matmul_ms=dw_ms)
+    # row-step; ms is the kernel and the dW matmul together, split into the
+    # gate pre-pass, the walk and the dW matmul by their device times.
+    for name, m in (("lstm_bwd_wide", None), ("lstm_bwd_wide_masked", mask)):
+        h, c = fwd if m is None else lstm_seq.lstm_seq_train(xp, w, m)
+        bw_args = (w, h, c, xp, g, m)
+        got = lstm_seq.lstm_bwd_wide(*bw_args)
+        kernel_ms = time_ms(lambda: lstm_seq.lstm_bwd_wide_dx(*bw_args), 5)
+        dw_ms = time_ms(lambda: lstm_seq.wide_dw(h, got[0]), 5)
+        split = wide_bwd_split(lambda: lstm_seq.lstm_bwd_wide(*bw_args))
+        record(name, src, "e2e_asr_tpu/ops/lstm_pallas.py:975", got,
+               lstm_bidir.lstm_bwd_reference(*bw_args),
+               lambda: lstm_seq.lstm_bwd_wide(*bw_args),
+               lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 5, 1,
+               (3 * ops, nbytes(*bw_args, *got)),
+               lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True),
+               steps=T, route=lambda: launched_wide_bwd(H),
+               kernel_ms=kernel_ms, dw_matmul_ms=dw_ms, **split)
+
+
+def wide_bwd_split(fn, n: int = 3) -> dict:
+    """Device time a call of #5-wide's phases in a profiler trace of n
+    calls of fn (the kernel and the dW matmul): the gate pre-pass, the
+    walk (either route's kernel) and PyTorch's matmul."""
+    import prof_port   # tools/, on the path (main)
+    phases = {"lstm_bwd_gates_kernel": "prepass_ms",
+              "lstm_wide_bwd_walk_kernel": "walk_ms",
+              "lstm_wide_bwd_kernel": "walk_ms", "torch_matmul": "dw_ms"}
+    split = dict.fromkeys(("prepass_ms", "walk_ms", "dw_ms"), 0.0)
+    for e in prof_port.device_events(fn, n, "lstm_bwd_wide"):
+        group = prof_port.kernel_group(e).split(" (")[0]
+        if group in phases:
+            split[phases[group]] += e["dur"] / 1e3 / n
+    if not split["walk_ms"] or not split["prepass_ms"]:
+        fail(f"#5-wide's phases are missing from its trace: {split}")
+    return split
 
 
 def check_cells_gru(params, cfg, dev, record: Recorder) -> None:
@@ -1474,8 +1549,12 @@ COUNTERS = {"lstm_bidir": (lstm_bidir, "LAUNCHES"),
             "dec_train_gru_fwd_deep": (dec_train_gru, "FWD_LAUNCHES"),
             "dec_train_gru_bwd_deep": (dec_train_gru, "BWD_LAUNCHES"),
             "beam_mega_deep": (beam_mega, "LAUNCHES"),
+            "lstm_bwd_wide_masked": (lstm_seq, "WIDE_BWD_LAUNCHES"),
             "mhsa": (mhsa, "LAUNCHES"), "mhsa_rel": (mhsa, "LAUNCHES"),
-            "mhsa_test": (mhsa, "LAUNCHES")}
+            "mhsa_test": (mhsa, "LAUNCHES"),
+            "mhsa_probs": (mhsa, "PROBS_LAUNCHES"),
+            "mhsa_rel_probs": (mhsa, "PROBS_LAUNCHES"),
+            "mhsa_test_probs": (mhsa, "PROBS_LAUNCHES")}
 # The kernels each main path must launch. The ASR step takes both
 # directions of A's backward in one launch (lstm_bidir_bwd), never
 # lstm_bwd; the LM step's kernel #3 has no mask, and its backward is #5.
@@ -1541,7 +1620,8 @@ def decode_rows(gru_decoder: bool) -> tuple[str, str]:
 def zero_launches() -> None:
     for module, counter in COUNTERS.values():
         setattr(module, counter, 0)
-    for routes in (lstm_bidir.BWD_ROUTES, lstm_seq.WIDE_FWD_ROUTES):
+    for routes in (lstm_bidir.BWD_ROUTES, lstm_seq.WIDE_FWD_ROUTES,
+                   lstm_seq.WIDE_BWD_ROUTES, mhsa.ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     dec_train.DEPTHS.clear()
     dec_train_gru.DEPTHS.clear()
@@ -1556,17 +1636,24 @@ def read_launches(path: str, required) -> dict:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {path} path")
     # Every LSTM here at or below H = 296 (the flagship's 256) walks its
-    # backward (#2, #5) on the resident route, and the 1280-wide LM cell
-    # runs #4 on its resident route.
+    # backward (#2, #5) on the resident route, the 1280-wide LM cell runs
+    # #4 and #5's wide form on their resident routes, and #18 keeps the
+    # encoder's T' <= 64 on chip.
     routes = {"lstm_bwd": dict(lstm_bidir.BWD_ROUTES),
-              "lstm_seq_wide": dict(lstm_seq.WIDE_FWD_ROUTES)}
+              "lstm_seq_wide": dict(lstm_seq.WIDE_FWD_ROUTES),
+              "lstm_bwd_wide": dict(lstm_seq.WIDE_BWD_ROUTES),
+              "mhsa": dict(mhsa.ROUTES)}
     print(f"routes in the {path} run: {json.dumps(routes)}", flush=True)
+    resident = {"mhsa": "onchip"}
     for kernel, rows in (("lstm_bwd", ("lstm_bidir_bwd", "lstm_bwd")),
-                         ("lstm_seq_wide", ("lstm_seq_wide_train",))):
+                         ("lstm_seq_wide", ("lstm_seq_wide_train",)),
+                         ("lstm_bwd_wide", ("lstm_bwd_wide",)),
+                         ("mhsa", ("mhsa",))):
+        on, off = ((resident[kernel], "chunked") if kernel in resident
+                   else ("resident", "streamed"))
         if any(r in required for r in rows) and (
-                routes[kernel]["resident"] <= 0
-                or routes[kernel]["streamed"] > 0):
-            fail(f"the {path} path did not take {kernel}'s resident route "
+                routes[kernel][on] <= 0 or routes[kernel][off] > 0):
+            fail(f"the {path} path did not take {kernel}'s {on} route "
                  f"alone: {routes[kernel]}")
     return launches
 
@@ -2807,14 +2894,19 @@ def deep_decoders(dev, card, rev_vocab) -> dict:
 
 
 def check_mhsa(dev, record: Recorder) -> None:
-    """Phase 14a: kernel #18 against its plain version at MHSA_CASES,
-    beside scaled_dot_product_attention on the same out (its additive mask
-    the relmat plus the padding bias; it computes out alone, not the
-    probs), with the bound of the function: q, k, v, the biases read once,
-    out and probs written once; the two matmuls' and the softmax's float32
-    operations."""
+    """Phase 14a: kernel #18 against its plain version at MHSA_CASES, in
+    both forms: the out-only form (the encoder's inference call; row
+    `name`) beside scaled_dot_product_attention on the same out (its
+    additive mask the relmat plus the padding bias; it computes out alone),
+    and the probs form (row `name`_probs) beside the plain chain; the
+    out-only form's out must be the probs form's, bit for bit. Times are
+    device times a call from a CUDA graph of 50 calls (graph_ms), so that
+    the host does not set them. The bound of each form: q, k, v, the biases
+    read once, out (and probs) written once; the two matmuls' and the
+    softmax's float32 operations."""
     rng = np.random.default_rng(18)
     nh, hd = 4, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, B, T, rel in MHSA_CASES:
         def rand(*shape, scale=1.0):
             return torch.tensor((rng.normal(size=shape) * scale).astype(
@@ -2830,24 +2922,37 @@ def check_mhsa(dev, record: Recorder) -> None:
                   else torch.zeros(nh, T, T, device=dev))
         args = (q, k, v, pad, relmat)
         got = mhsa.attend(*args, return_probs=True)
+        only = mhsa.attend(*args)
         want = mhsa.attend_reference(*args)
+        if not torch.equal(only, got[0]):
+            fail(f"{name}: the out-only form's out is not the probs form's")
         uniform = torch.full_like(got[1][-1], 1.0 / T)
         if float((got[1][-1] - uniform).abs().max()) > 1e-7:
             fail(f"{name}: the zero-length row's probs are not uniform")
         mask = (relmat[None] + pad[:, None, None, :]).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_err = float((sdpa(q, k, v, attn_mask=mask) - want[0])[:-1]
                         .abs().max())
         print(f"{name}: scaled_dot_product_attention vs the plain version "
               f"on the rows of nonzero length: {lib_err:.3e}", flush=True)
         flops = 4 * B * nh * T * T * hd + 8 * B * nh * T * T
-        record(name, "e2e_asr_tpu_torch/csrc/mhsa.cu",
-               "e2e_asr_tpu/ops/mhsa_pallas.py:116", got, want,
+
+        def route():
+            p = mhsa.LAST_PLAN
+            return f"{p['route']}, {p['rows']} query rows a block"
+
+        src = "e2e_asr_tpu_torch/csrc/mhsa.cu"
+        replaces = "e2e_asr_tpu/ops/mhsa_pallas.py:116"
+        record(name, src, replaces, [only], want[:1],
+               lambda: mhsa.attend(*args),
+               lambda: mhsa.attend_reference(*args), 50, 50,
+               (flops, nbytes(*args, only)),
+               library=lambda: graph_ms(
+                   lambda: sdpa(q, k, v, attn_mask=mask), 50),
+               route=route, timer=graph_ms)
+        record(f"{name}_probs", src, replaces, got, want,
                lambda: mhsa.attend(*args, return_probs=True),
-               lambda: mhsa.attend_reference(*args), 50, 20,
-               (flops, nbytes(*args, *got)),
-               library=lambda: time_ms(
-                   lambda: sdpa(q, k, v, attn_mask=mask), 50))
+               lambda: mhsa.attend_reference(*args), 50, 50,
+               (flops, nbytes(*args, *got)), route=route, timer=graph_ms)
 
 
 class mhsa_gate:
@@ -3049,7 +3154,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("float32 throughout; TF32 off for matmuls and cuDNN")
 
-    # 2. build
+    # 2. build (and tools/ on the path: tools/prof_port.py's profiler split)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
     t0 = time.monotonic()
     lib = build.build()
     build.library()
@@ -3143,8 +3250,6 @@ def main() -> int:
     print(f"transducer model: {seq2seq.param_count(shapes)} parameters")
     paths["transducer"] = train(transducer_cfg(), dev, card, TRANSDUCER_PATH,
                                 "transducer training")
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tools"))
     import prof_port
     prof_port.profile_train(transducer_cfg(), dev, "transducer_step")
     paths.update(recipe(dev, card, "transducer"))

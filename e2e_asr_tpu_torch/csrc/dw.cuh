@@ -1,15 +1,16 @@
 // Tiled products over the R = T*B rows of a recurrent layer's sequence,
-// for the backward kernels (lstm_bidir_bwd.cu, gru_bwd.cu). Above all the
-// weight gradients: dW[k, n] = sum over rows r of X[r, k] * G[r, n], X
-// [R, K] and G [R, N] row-major, X's row r read from row r - shift (zero
-// for r < shift: h_{t-1} of the first step).
+// for the backward kernels (lstm_bidir_bwd.cu, lstm_seq_wide.cu,
+// gru_bwd.cu). Above all the weight gradients: dW[k, n] = sum over rows r
+// of X[r, k] * G[r, n], X [R, K] and G [R, N] row-major, X's row r read
+// from row r - shift (zero for r < shift: h_{t-1} of the first step); and
+// the LSTM backward's gate pre-activations x_proj + h_{t-1} W_h over every
+// row (lstm_bwd_gates_kernel).
 //
 // 128 x 128 output tiles, 8 x 8 outputs a thread of 256, stages of 16
 // summed depths filled by 4-byte cp.async (any alignment, zero past the
-// edges) and double-buffered: tile_product, which lstm_bidir_bwd.cu's gate
-// pre-activations also run. dW's rows are split over `splits` blocks into
-// a partial buffer [splits, K, N] that a second kernel sums in a fixed
-// order: no atomics, the same bits every run.
+// edges) and double-buffered: tile_product. dW's rows are split over
+// `splits` blocks into a partial buffer [splits, K, N] that a second
+// kernel sums in a fixed order: no atomics, the same bits every run.
 #pragma once
 
 #include <cstddef>
@@ -79,6 +80,60 @@ __device__ __forceinline__ void tile_store(int m0, int n0, int M, int N,
     }
   }
 }
+
+// ---- the gate pre-activations over all T*B rows ----------------------------
+
+struct GateJob {
+  const float *h, *w, *x;  // h [R,K] (row r read from r - shift), w [K,N]
+  float* out;              // x_proj [R,N] plus the product
+};
+
+struct GateArgs {
+  GateJob job[2];
+  int R, K, N, shift;
+};
+
+// out[r, n] = x[r, n] + sum over k < K of h[r - shift, k] * w[k, n] (h's
+// row r - shift is zero for r < shift: h_{-1} = 0), one fixed-order sum
+// an output; grid (R / 128, N / 128, jobs): the row tiles on x, which
+// takes any T*B.
+__global__ void __launch_bounds__(256, 2) lstm_bwd_gates_kernel(GateArgs a) {
+  __shared__ __align__(16) RowTile s;
+  const GateJob jb = blockIdx.z ? a.job[1] : a.job[0];
+  const int m0 = blockIdx.x * kTM, n0 = blockIdx.y * kTN;
+  const int tid = threadIdx.x, hr = m0 + tid / kTK;
+  const int wn = n0 + tid % kTN;
+  float acc[8][8] = {};
+  // Thread tid copies, for q < 8: h's row hr + 16q at depth k0 + tid % 16
+  // (landing transposed) and w's row k0 + tid / 128 + 2q at column wn.
+  auto stage_in = [&](int k0, int buf) {
+    const int k = k0 + tid % kTK;
+    const float* hp = jb.h + (static_cast<ptrdiff_t>(hr) - a.shift) * a.K + k;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int m = hr + 16 * q;
+      const bool in = m < a.R && m >= a.shift && k < a.K;
+      copy_async4(&s.a[buf][tid % kTK][tid / kTK + 16 * q],
+                  in ? hp + static_cast<size_t>(16 * q) * a.K : jb.h, in);
+    }
+    const int wk = k0 + tid / kTN;
+    const float* wp = jb.w + static_cast<size_t>(wk) * a.N + wn;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const bool in = wk + 2 * q < a.K && wn < a.N;
+      copy_async4(&s.b[buf][tid / kTN + 2 * q][tid % kTN],
+                  in ? wp + static_cast<size_t>(2 * q) * a.N : jb.w, in);
+    }
+    commit_async();
+  };
+  tile_product(s, 0, (a.K + kTK - 1) / kTK, stage_in, acc);
+  tile_store(m0, n0, a.R, a.N, acc, [&](int row, int col, float v) {
+    const size_t o = static_cast<size_t>(row) * a.N + col;
+    jb.out[o] = v + __ldg(jb.x + o);
+  });
+}
+
+// ---- dW ---------------------------------------------------------------------
 
 struct DwJob {
   const float *x, *g;

@@ -21,10 +21,11 @@
 // 1. The gate pre-activations x_proj + h_{t-1} . W_h of every step, both
 //    directions, in one tiled product over all T*B rows, written into dx
 //    (nothing in it waits on the recurrence); the walk reads them there and
-//    overwrites them with dgates. dw.cuh's tile_product: 128 x 128 tiles,
-//    8 x 8 outputs a thread, stages of 16 depths filled by 4-byte cp.async
-//    (the h operand lands transposed), double-buffered; the row tiles on
-//    the grid's x, so any T*B.
+//    overwrites them with dgates. dw.cuh's lstm_bwd_gates_kernel (#5's
+//    wide form in lstm_seq_wide.cu shares it) on its tile_product: 128 x
+//    128 tiles, 8 x 8 outputs a thread, stages of 16 depths filled by
+//    4-byte cp.async (the h operand lands transposed), double-buffered; the
+//    row tiles on the grid's x, so any T*B.
 // 2. W_h's columns re-laid by owner block (a small gather).
 // 3. The walk: a cluster of 8 blocks walks a group of Rg batch rows of one
 //    direction. Block j owns units [jU, jU + U), U = ceil(H / 8), i.e.
@@ -100,59 +101,6 @@ __host__ __device__ inline Plan make_plan(int H, int Rg, bool resident) {
             static_cast<size_t>(2) * p.K8 * Rg) *
            sizeof(float);
   return p;
-}
-
-// ---- 1. the gate pre-activations over all T*B rows -------------------------
-
-struct GateJob {
-  const float *h, *w, *x;  // h [R,K] (row r read from r - shift), w [K,N]
-  float* out;              // x_proj [R,N] plus the product
-};
-
-struct GateArgs {
-  GateJob job[2];
-  int R, K, N, shift;
-};
-
-// out[r, n] = x[r, n] + sum over k < K of h[r - shift, k] * w[k, n] (h's
-// row r - shift is zero for r < shift: h_{-1} = 0), one fixed-order sum
-// an output; grid (R / 128, N / 128, jobs): the row tiles on x, which
-// takes any T*B.
-__global__ void __launch_bounds__(256, 2) lstm_bwd_gates_kernel(GateArgs a) {
-  __shared__ __align__(16) e2e::RowTile s;
-  const GateJob jb = blockIdx.z ? a.job[1] : a.job[0];
-  const int m0 = blockIdx.x * e2e::kTM, n0 = blockIdx.y * e2e::kTN;
-  const int tid = threadIdx.x, hr = m0 + tid / e2e::kTK;
-  const int wn = n0 + tid % e2e::kTN;
-  float acc[8][8] = {};
-  // Thread tid copies, for q < 8: h's row hr + 16q at depth k0 + tid % 16
-  // (landing transposed) and w's row k0 + tid / 128 + 2q at column wn.
-  auto stage_in = [&](int k0, int buf) {
-    const int k = k0 + tid % e2e::kTK;
-    const float* hp = jb.h + (static_cast<ptrdiff_t>(hr) - a.shift) * a.K + k;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int m = hr + 16 * q;
-      const bool in = m < a.R && m >= a.shift && k < a.K;
-      e2e::copy_async4(&s.a[buf][tid % e2e::kTK][tid / e2e::kTK + 16 * q],
-                       in ? hp + static_cast<size_t>(16 * q) * a.K : jb.h,
-                       in);
-    }
-    const int wk = k0 + tid / e2e::kTN;
-    const float* wp = jb.w + static_cast<size_t>(wk) * a.N + wn;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const bool in = wk + 2 * q < a.K && wn < a.N;
-      e2e::copy_async4(&s.b[buf][tid / e2e::kTN + 2 * q][tid % e2e::kTN],
-                       in ? wp + static_cast<size_t>(2 * q) * a.N : jb.w, in);
-    }
-    e2e::commit_async();
-  };
-  e2e::tile_product(s, 0, (a.K + e2e::kTK - 1) / e2e::kTK, stage_in, acc);
-  e2e::tile_store(m0, n0, a.R, a.N, acc, [&](int row, int col, float v) {
-    const size_t o = static_cast<size_t>(row) * a.N + col;
-    jb.out[o] = v + __ldg(jb.x + o);
-  });
 }
 
 // ---- 2 and 3. the walk -----------------------------------------------------
@@ -519,14 +467,14 @@ E2E_EXPORT int e2e_lstm_bwd(const void* const* ptrs, int n_dirs, int T, int B,
   };
   const int R = T * B, H4 = 4 * H;
   // 1. Gate pre-activations into dx.
-  GateArgs ga{};
+  e2e::GateArgs ga{};
   for (int d = 0; d < n_dirs; ++d)
     ga.job[d] = {in(d, 1), in(d, 0), in(d, 3), out(d, 6)};
   ga.R = R;
   ga.K = H;
   ga.N = H4;
   ga.shift = B;
-  lstm_bwd_gates_kernel<<<dim3((R + e2e::kTM - 1) / e2e::kTM,
+  e2e::lstm_bwd_gates_kernel<<<dim3((R + e2e::kTM - 1) / e2e::kTM,
                                (H4 + e2e::kTN - 1) / e2e::kTN, n_dirs),
                           256, 0, stream>>>(ga);
   cudaError_t e = cudaGetLastError();

@@ -36,29 +36,50 @@
 // units of a row, h's transposed copy through shared memory. One grid
 // barrier a step. Rows past 128 take further row tiles within the step.
 // #4, the "streamed" route (any other H, e.g. 2048, whose W_h exceeds the
-// grid's shared memory) and #5's wide form: ONE persistent cooperative
-// launch per direction, grid barriers between the dependent stages. The
-// forward's tile is 8 hidden units x all four of their gate columns (32
-// columns of W_h) x 128 batch rows, so the cell update of a unit stays in
-// the thread that summed its four gates. Each step the block streams its
-// W_h columns and the rows of h_{t-1} through shared memory in chunks of 32
-// depths, double-buffered: the next chunk's global loads are in flight
-// while the current one is multiplied. Each thread accumulates 4 rows x 4
-// columns from two 16-byte shared-memory loads a depth (h stored
+// grid's shared memory): ONE persistent cooperative launch, a grid barrier
+// between steps. The tile is 8 hidden units x all four of their gate
+// columns (32 columns of W_h) x 128 batch rows, so the cell update of a
+// unit stays in the thread that summed its four gates. Each step the block
+// streams its W_h columns and the rows of h_{t-1} through shared memory in
+// chunks of 32 depths, double-buffered: the next chunk's global loads are
+// in flight while the current one is multiplied. Each thread accumulates 4
+// rows x 4 columns from two 16-byte shared-memory loads a depth (h stored
 // depth-major, W_h unit-major).
-// The backward first recomputes every step's gate pre-activations
-// x_proj + h_{t-1} W_h in one pass over all T*B rows (nothing in it waits
-// on the recurrence), then walks time in reverse. A step is dh_{t-1} =
-// dgates_t W_h^T on the same tiles, split four ways along its depth 4H by
-// gate (32 units x 128 rows a tile, W_h read along its rows), into partial
-// sums; after a barrier, one thread a (row, unit) adds the four partials
-// and runs the cell backward of step t-1: two grid barriers a step.
+// #5's wide form, two launches. (1) The gate pre-activations x_proj +
+// h_{t-1} W_h of every step, in one tiled product over all T*B rows into
+// dx (nothing in it waits on the recurrence): dw.cuh's
+// lstm_bwd_gates_kernel, 128 x 128 tiles by cp.async, as #2's pre-pass.
+// (2) The reverse walk, dh_{t-1} = dgates_t W_h^T behind each step's cell
+// backward (a [B, 4H] x [4H, H] product, 0.84 GFMA at B = 128, H = 1280: 25
+// us of float32 FMA a step at the card's peak), by one of two routes that
+// this file chooses by H and the card (walk_fits):
+// "resident" (H <= 1280 on the H100): clusters of 2 blocks. Cluster i
+// owns units [20i, 20i + 20); its block j keeps W_h's rows of those units
+// over the gate columns [2jH, 2jH + 2H) in shared memory for the whole walk
+// (204,800 B at H = 1280), computes the partial dh of the cluster's units
+// over its half of the depth from dgates_t, and the cluster adds the two
+// partials of each unit through distributed shared memory. Reckoned a step
+// at B = 128, H = 1280: each of the 128 blocks reads its B x 2H floats of
+// dgates_t from L2, 168 MB in all (clusters of 4 would read 84 MB, but the
+// H100 holds 30 clusters of 4 such blocks, not the 32 that 1280 units
+// need; every block reading all of dgates_t, 335 MB); a block that kept
+// the gate columns of its own units instead would leave partial sums of B
+// x H floats to be reduced over all 128 blocks (84 MB written and read a
+// step without clusters, about 5 MB with clusters of 16 but chunked
+// through the 22 KB of shared memory its W_h slice leaves).
+// "streamed" (wider): one cooperative launch on tiles of 32 units x 128
+// rows, W_h streamed from L2 every step, the depth split four ways by gate
+// into partial sums and two grid barriers a step.
+// Both walks sum in a fixed order (no atomics: the same bits every run).
 // H must be a multiple of 8 in the streamed forward, of 16 in the resident
 // one and of 32 in the backward (16-byte loads of whole unit groups; whole
 // tiles of 32 units), as the JAX package's chunk rule wants H to split into
-// tiles of 8 or more (_chunk_size); the wrapper asks 32 of all. The route
-// is chosen here by H (resident_fits); e2e_lstm_wide_fwd_plan hands it to
-// the wrapper (kernels/lstm_seq.wide_fwd_plan), which counts it.
+// tiles of 8 or more (_chunk_size); the wrapper asks 32 of all. The routes
+// are chosen here by H (resident_fits, walk_fits);
+// e2e_lstm_wide_fwd_plan and e2e_lstm_wide_bwd_plan hand them to the
+// wrapper (kernels/lstm_seq.wide_fwd_plan, wide_bwd_plan), which counts
+// them.
+#include "dw.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -425,85 +446,106 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- #5's wide form ---------------------------------------------------------
+
 struct BwdArgs {
-  const float *w, *h, *c, *xp, *g, *mask;
-  float *dx, *dc, *dht, *part;
+  const float *w, *h, *c, *g, *mask;
+  float *dx, *dc, *dht;
+  float* scratch;  // streamed: part [4,B,H]; resident: dgt [2][tiles][4H][128]
   int T, B, H;
 };
 
-// The cell backward of step t for (row n, unit u), given the carried
-// d(h_t) from step t+1: reads the gate pre-activations in dx[t], writes
-// dgates * valid there (dx_proj), and updates the carries dc and dht (this
-// step's d(h) total, which an invalid step t+1 passed through).
-__device__ void wide_cell_bwd(const BwdArgs& p, int t, int n, int u,
-                              float dh_carry) {
+// The cell backward's inputs of step t for (row n, unit u): the gate
+// pre-activations (in dx until the step's dgates replace them), c_{t-1},
+// c_t, the output gradient, the mask, and the carries the step after left
+// (dc, and dht, that step's d(h) total, which an invalid step passes on).
+struct CellIn {
+  float pre[4], c_prev, c_t, g, valid, dc, dht_next, valid_next;
+};
+
+__device__ __forceinline__ void cell_in(const BwdArgs& p, int t, int n, int u,
+                                        CellIn& in) {
   const int B = p.B, H = p.H;
   const size_t r = static_cast<size_t>(t) * B + n;
   const size_t o = static_cast<size_t>(n) * H + u;
-  float* pre = p.dx + r * 4 * H + u;
-  const float i = e2e::sigmoid(__ldcg(pre)), j = tanhf(__ldcg(pre + H));
-  const float f = e2e::sigmoid(__ldcg(pre + 2 * H) + 1.f);
-  const float og = e2e::sigmoid(__ldcg(pre + 3 * H));
-  const float c_prev = t > 0 ? __ldg(p.c + (r - B) * H + u) : 0.f;
-  const float tanh_c = tanhf(__ldg(p.c + r * H + u));
-  const float valid = p.mask != nullptr ? __ldg(p.mask + r) : 1.f;
-  const float dc_carry = t < p.T - 1 ? __ldcg(p.dc + o) : 0.f;
-  const float dh_total = __ldg(p.g + r * H + u) * valid + dh_carry;
+  const float* pre = p.dx + r * 4 * H + u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) in.pre[q] = __ldcg(pre + q * H);
+  in.c_prev = t > 0 ? __ldg(p.c + (r - B) * H + u) : 0.f;
+  in.c_t = __ldg(p.c + r * H + u);
+  in.g = __ldg(p.g + r * H + u);
+  in.valid = p.mask != nullptr ? __ldg(p.mask + r) : 1.f;
+  const bool last = t == p.T - 1;
+  in.dc = last ? 0.f : __ldcg(p.dc + o);
+  in.dht_next = last ? 0.f : __ldcg(p.dht + o);
+  in.valid_next =
+      last || p.mask == nullptr ? 1.f : __ldg(p.mask + r + B);
+}
+
+// The cell backward of step t for (row n, unit u) from its inputs and dh,
+// the product dgates_{t+1} W_h^T at (n, u) (0 at the last step): the
+// carried d(h_t) is dh where step t+1 was valid and the passed-through
+// total where it was not. Writes dgates * valid to dg and dx[t] (dx_proj)
+// and the carries dc and dht.
+__device__ __forceinline__ void cell_bwd(const BwdArgs& p, int t, int n,
+                                         int u, const CellIn& in, float dh,
+                                         float (&dg)[4]) {
+  const int B = p.B, H = p.H;
+  const size_t o = static_cast<size_t>(n) * H + u;
+  const float dh_carry = in.valid_next * dh + (1.f - in.valid_next) *
+                                                  in.dht_next;
+  const float i = e2e::sigmoid(in.pre[0]), j = tanhf(in.pre[1]);
+  const float f = e2e::sigmoid(in.pre[2] + 1.f);
+  const float og = e2e::sigmoid(in.pre[3]);
+  const float tanh_c = tanhf(in.c_t);
+  const float valid = in.valid;
+  const float dh_total = in.g * valid + dh_carry;
   const float dc_total =
-      dh_total * og * (1.f - tanh_c * tanh_c) + dc_carry;
-  pre[0] = dc_total * j * i * (1.f - i) * valid;
-  pre[H] = dc_total * i * (1.f - j * j) * valid;
-  pre[2 * H] = dc_total * c_prev * f * (1.f - f) * valid;
-  pre[3 * H] = dh_total * tanh_c * og * (1.f - og) * valid;
-  p.dc[o] = valid * (dc_total * f) + (1.f - valid) * dc_carry;
+      dh_total * og * (1.f - tanh_c * tanh_c) + in.dc;
+  dg[0] = dc_total * j * i * (1.f - i) * valid;
+  dg[1] = dc_total * i * (1.f - j * j) * valid;
+  dg[2] = dc_total * in.c_prev * f * (1.f - f) * valid;
+  dg[3] = dh_total * tanh_c * og * (1.f - og) * valid;
+  float* out = p.dx + (static_cast<size_t>(t) * B + n) * 4 * H + u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) out[q * H] = dg[q];
+  p.dc[o] = valid * (dc_total * f) + (1.f - valid) * in.dc;
   p.dht[o] = dh_total;
 }
 
+// The "streamed" walk (any H, a multiple of 32): dh_{t-1} = dgates_t
+// W_h^T on tiles of 32 units x 128 rows, its depth split four ways by gate
+// (part[s] = dgates_t[:, sH:(s+1)H] W_h[:, sH:(s+1)H]^T, W_h read along
+// its rows); after a grid barrier, one thread a (row, unit) adds the four
+// partials in gate order and runs step t-1's cell backward: two grid
+// barriers a step.
 __global__ void __launch_bounds__(kThreads) lstm_wide_bwd_kernel(BwdArgs p) {
   __shared__ TileSmem sm;
   cg::grid_group grid = cg::this_grid();
-  const int B = p.B, H = p.H, H4 = 4 * H, R = p.T * B;
+  const int B = p.B, H = p.H, H4 = 4 * H;
   const size_t tid = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t BH = static_cast<size_t>(B) * H;
-  // 1. The gate pre-activations of every step into dx: x_proj + h_{t-1}
-  // W_h over all T*B rows (h_{-1} = 0: row r reads h's row r - B).
-  {
-    const int utiles = H / kUL;
-    const int tiles = utiles * ((R + kTR - 1) / kTR);
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int u0 = (tile % utiles) * kUL, r0 = (tile / utiles) * kTR;
-      wide_tile<false>(
-          p.h, H, H, B, R, r0, p.w, H4, u0, H, sm,
-          [&](int r, int ux, const float (&s)[4]) {
-            const size_t o = static_cast<size_t>(r) * H4 + u0 + ux;
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              p.dx[o + g * H] = s[g] + __ldg(p.xp + o + g * H);
-          });
-    }
+  float dg[4];
+  CellIn in;
+  // The last step's cell backward (no carry).
+  for (size_t i = tid; i < BH; i += stride) {
+    const int n = static_cast<int>(i / H), u = static_cast<int>(i % H);
+    cell_in(p, p.T - 1, n, u, in);
+    cell_bwd(p, p.T - 1, n, u, in, 0.f, dg);
   }
   grid.sync();
-  // 2. The last step's cell backward (no carry).
-  for (size_t i = tid; i < BH; i += stride)
-    wide_cell_bwd(p, p.T - 1, static_cast<int>(i / H),
-                  static_cast<int>(i % H), 0.f);
-  grid.sync();
-  // 3. Reverse time. dh_{t-1} = dgates_t W_h^T, its depth split by gate s:
-  // part[s] = dgates_t[:, sH:(s+1)H] W_h[:, sH:(s+1)H]^T on tiles of 32
-  // units x 128 rows; then per (row, unit) the sum and step t-1's cell
-  // backward.
   const int utiles = H / kWC;
   const int rtiles = (B + kTR - 1) / kTR;
   const int tiles = 4 * utiles * rtiles;
   for (int t = p.T - 1; t >= 1; --t) {
-    const float* dg = p.dx + static_cast<size_t>(t) * B * H4;
+    const float* dgt = p.dx + static_cast<size_t>(t) * B * H4;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int s = tile % 4, rest = tile / 4;
       const int u0 = (rest % utiles) * kWC, r0 = (rest / utiles) * kTR;
-      float* part = p.part + s * BH;
+      float* part = p.scratch + s * BH;
       wide_tile<true>(
-          dg + s * H, H4, H, 0, B, r0, p.w + s * H, H4, u0, kUL, sm,
+          dgt + s * H, H4, H, 0, B, r0, p.w + s * H, H4, u0, kUL, sm,
           [&](int n, int ux, const float (&acc)[4]) {
 #pragma unroll
             for (int g = 0; g < 4; ++g)
@@ -513,14 +555,207 @@ __global__ void __launch_bounds__(kThreads) lstm_wide_bwd_kernel(BwdArgs p) {
     grid.sync();
     for (size_t i = tid; i < BH; i += stride) {
       const int n = static_cast<int>(i / H), u = static_cast<int>(i % H);
-      const float valid =
-          p.mask != nullptr ? __ldg(p.mask + static_cast<size_t>(t) * B + n)
-                            : 1.f;
-      const float dh = __ldcg(p.part + i) + __ldcg(p.part + BH + i) +
-                       __ldcg(p.part + 2 * BH + i) +
-                       __ldcg(p.part + 3 * BH + i);
-      wide_cell_bwd(p, t - 1, n, u,
-                    valid * dh + (1.f - valid) * __ldcg(p.dht + i));
+      cell_in(p, t - 1, n, u, in);
+      const float dh = __ldcg(p.scratch + i) + __ldcg(p.scratch + BH + i) +
+                       __ldcg(p.scratch + 2 * BH + i) +
+                       __ldcg(p.scratch + 3 * BH + i);
+      cell_bwd(p, t - 1, n, u, in, dh, dg);
+    }
+    grid.sync();
+  }
+}
+
+// The "resident" walk: a cooperative launch of clusters of kQ = 2 blocks.
+// Cluster i owns the 20 units K_i = [20i, 20i + 20); its block j keeps
+// W_h[K_i, jD:(j+1)D] in shared memory for the whole walk (D = 2H gate
+// columns; 40H floats, 204,800 B at H = 1280), so no step reads W_h. A
+// step t: block j multiplies dgates_t[:, jD:(j+1)D] (its depth, read
+// through two cp.async rings from a transposed copy, so that 8 depths x
+// 128 rows are one contiguous 4 KB copy) by its slice into a partial
+// dh_{t-1} for the cluster's 20 units x 128 rows, on #4's partition (the 8
+// warps split rows, outputs and depth two ways each; a thread sums 4 rows
+// x 10 outputs from one float4 of dgates and 5 float2 of W_h a depth);
+// after a cluster barrier each block adds the two partials of its own 10
+// units in rank order through distributed shared memory and runs their
+// cell backward (10 units x 128 rows, whose inputs were loaded during the
+// product), writing dgates to dx and, transposed, to the copy the next
+// step reads. Two cluster barriers (the partials are in; no peer reads
+// them any more) and one grid barrier a step; no atomics: the same bits
+// every run. Rows past 128 take further row tiles within the step.
+constexpr int kWU = 10;                        // units a block owns
+constexpr int kQ = 2;                          // blocks a cluster
+constexpr int kCells = kRT * kWU / kThreads;   // (row, unit) pairs a thread
+
+__host__ __device__ inline size_t walk_smem(int H) {
+  return (static_cast<size_t>(H) * 4 * kWU + kRS * kRStage) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_wide_bwd_walk_kernel(BwdArgs p) {
+  extern __shared__ __align__(16) float rsm[];
+  constexpr int NO = kWU * kQ;  // the cluster's units: its product's outputs
+  constexpr int NT = NO / 2;   // outputs a thread
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int H = p.H, H4 = 4 * H, B = p.B, tid = threadIdx.x;
+  const int j = static_cast<int>(cluster.block_rank());
+  const int k0 = static_cast<int>(blockIdx.x) / kQ * NO;  // first unit
+  const int nk = min(NO, H - k0);
+  const int D = H4 / kQ, c0 = j * D;  // this block's gate columns
+  const int u0 = k0 + j * kWU;       // its own units (none past H)
+  float* ws = rsm;                   // [D][NO]: W_h[k0 + o, c0 + c]
+  float* hs = rsm + static_cast<size_t>(D) * NO;  // rings; partials; dgates
+  for (int e = tid; e < NO * D; e += kThreads) {
+    const int o = e / D, c = e % D;  // along W_h's rows: coalesced
+    ws[c * NO + o] =
+        o < nk ? __ldg(p.w + static_cast<size_t>(k0 + o) * H4 + c0 + c) : 0.f;
+  }
+  // Warp (rh, uh, ks): rows 64 rh.., outputs NT uh.., depths 8 ks.. of
+  // every 16; lane (half, r4): rows 4 r4.. of those, depths of parity half.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rh = warp & 1, uh = (warp >> 1) & 1, ks = warp >> 2;
+  const int half = lane >> 4, r4 = lane & 15;
+  const int rtiles = (B + kRT - 1) / kRT, nch = D / kRK;
+  const size_t par_n = static_cast<size_t>(rtiles) * H4 * kRT;
+  CellIn in[kCells];
+  // The cell backward of step t for this block's pairs of row tile `tile`
+  // (pair e = tid + i * 256: row e / 10, unit slot e % 10), from `in` and
+  // dh, then its dgates transposed into the copy of step t's parity.
+  auto cells = [&](int t, int tile, const float (&dh)[kCells]) {
+    float* dts = hs;  // [gate * 10 + slot][row], row stride kRT + 1
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) {
+      const int e = tid + i * kThreads, rr = e / kWU, slot = e % kWU;
+      const int n = tile * kRT + rr, u = u0 + slot;
+      float dg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (u < H && n < B) cell_bwd(p, t, n, u, in[i], dh[i], dg);
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        dts[(g * kWU + slot) * (kRT + 1) + rr] = dg[g];
+    }
+    __syncthreads();
+    float* dst = p.scratch + (t & 1) * par_n +
+                 static_cast<size_t>(tile) * H4 * kRT;
+    const int nu = max(0, min(kWU, H - u0));
+    for (int e = tid; e < 4 * kWU * kRT; e += kThreads) {
+      const int gs = e / kRT, rr = e % kRT, g = gs / kWU, slot = gs % kWU;
+      if (slot < nu)
+        dst[(static_cast<size_t>(g) * H + u0 + slot) * kRT + rr] =
+            dts[gs * (kRT + 1) + rr];
+    }
+    __syncthreads();  // dts's space becomes the next tile's rings
+  };
+  auto fetch = [&](int t, int tile) {
+#pragma unroll
+    for (int i = 0; i < kCells; ++i) {
+      const int e = tid + i * kThreads;
+      const int n = tile * kRT + e / kWU, u = u0 + e % kWU;
+      if (u < H && n < B) cell_in(p, t, n, u, in[i]);
+    }
+  };
+
+  __syncthreads();  // W_h's slice is in
+  const float zero[kCells] = {};
+  for (int tile = 0; tile < rtiles; ++tile) {
+    fetch(p.T - 1, tile);
+    cells(p.T - 1, tile, zero);
+  }
+  grid.sync();
+  for (int t = p.T - 1; t >= 1; --t) {
+    const float* src_t = p.scratch + (t & 1) * par_n;
+    for (int tile = 0; tile < rtiles; ++tile) {
+      fetch(t - 1, tile);  // in flight during the product
+      float acc[4][NT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int o = 0; o < NT; ++o) acc[i][o] = 0.f;
+      {
+        // Depth half ks runs a ring of its own (8 depths a chunk: depths
+        // 16c + 8ks.. of the block's D), 4 warps under a named barrier.
+        const float* src = src_t + static_cast<size_t>(tile) * H4 * kRT +
+                           (static_cast<size_t>(c0) + ks * kGC) * kRT;
+        float* ring = hs + ks * kRS * kGStage;
+        const int gt = tid & 127;
+        auto stage_in = [&](int c) {
+          float* dst = ring + (c % kRS) * kGStage;
+          const float* from = src + static_cast<size_t>(c) * kRStage;
+          for (int e = gt; e < kGStage / 4; e += 128)
+            e2e::copy_async16(dst + 4 * e, from + 4 * e);
+        };
+#pragma unroll
+        for (int c = 0; c < kRS - 1; ++c) {
+          if (c < nch) stage_in(c);
+          e2e::commit_async();
+        }
+        for (int c = 0; c < nch; ++c) {
+          e2e::wait_async<kRS - 2>();
+          asm volatile("bar.sync %0, 128;" ::"r"(1 + ks) : "memory");
+          if (c + kRS - 1 < nch) stage_in(c + kRS - 1);
+          e2e::commit_async();
+          const float* hb = ring + (c % kRS) * kGStage + rh * 64 + r4 * 4;
+          const float* wb =
+              ws + static_cast<size_t>(c * kRK + ks * kGC) * NO + uh * NT;
+#pragma unroll
+          for (int kk = 0; kk < kGC / 2; ++kk) {
+            const int kl = kk * 2 + half;
+            const float4 av = *reinterpret_cast<const float4*>(hb + kl * kRT);
+            const float ar[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+            for (int o = 0; o < NT; o += 2) {
+              const float2 wv =
+                  *reinterpret_cast<const float2*>(wb + kl * NO + o);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc[i][o] = fmaf(ar[i], wv.x, acc[i][o]);
+                acc[i][o + 1] = fmaf(ar[i], wv.y, acc[i][o + 1]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // the rings become the partial sums
+      }
+      // The depth parities of a warp meet (half 0 keeps rows 0-1 of its
+      // four, half 1 rows 2-3), then the depth halves ks in shared memory:
+      // ps[output][row] (row stride kGS), ks = 1 writes, ks = 0 adds.
+      float sum[2][NT];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int o = 0; o < NT; ++o) {
+          const float mine = half ? acc[2 + r][o] : acc[r][o];
+          const float other = half ? acc[r][o] : acc[2 + r][o];
+          sum[r][o] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
+        }
+      float* ps = hs;
+      float2* at = reinterpret_cast<float2*>(ps + rh * 64 + r4 * 4 + 2 * half);
+      if (ks == 1) {
+#pragma unroll
+        for (int o = 0; o < NT; ++o)
+          at[(uh * NT + o) * kGS / 2] = make_float2(sum[0][o], sum[1][o]);
+      }
+      __syncthreads();
+      if (ks == 0) {
+#pragma unroll
+        for (int o = 0; o < NT; ++o) {
+          const float2 v = at[(uh * NT + o) * kGS / 2];
+          at[(uh * NT + o) * kGS / 2] =
+              make_float2(v.x + sum[0][o], v.y + sum[1][o]);
+        }
+      }
+      cluster.sync();  // every block's partials of the tile are in
+      float dh[kCells];
+#pragma unroll
+      for (int i = 0; i < kCells; ++i) {
+        const int e = tid + i * kThreads, rr = e / kWU, slot = e % kWU;
+        const int at_o = (j * kWU + slot) * kGS + rr;
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < kQ; ++r) s += cluster.map_shared_rank(ps, r)[at_o];
+        dh[i] = s;
+      }
+      cluster.sync();  // no peer reads this block's partials any more
+      cells(t - 1, tile, dh);
     }
     grid.sync();
   }
@@ -547,6 +782,54 @@ cudaError_t resident_fits(int H, bool* fits, int* blocks) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, smem);
   *fits = e == cudaSuccess && *blocks <= per_sm * sms;
+  return e;
+}
+
+// The resident walk's launch configuration at width H: grid 2 * ceil(H /
+// 20), clusters of 2, cooperative (a grid barrier a step).
+struct WalkLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+};
+
+cudaError_t walk_launch(int H, WalkLaunch& wl) {
+  const size_t smem = walk_smem(H);
+  const cudaError_t e = cudaFuncSetAttribute(
+      lstm_wide_bwd_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  wl.cfg = {};
+  wl.cfg.gridDim = dim3(kQ * ((H + kWU * kQ - 1) / (kWU * kQ)), 1, 1);
+  wl.cfg.blockDim = dim3(kThreads, 1, 1);
+  wl.cfg.dynamicSmemBytes = smem;
+  wl.attr[0].id = cudaLaunchAttributeClusterDimension;
+  wl.attr[0].val.clusterDim.x = kQ;
+  wl.attr[0].val.clusterDim.y = 1;
+  wl.attr[0].val.clusterDim.z = 1;
+  wl.attr[1].id = cudaLaunchAttributeCooperative;
+  wl.attr[1].val.cooperative = 1;
+  wl.cfg.attrs = wl.attr;
+  wl.cfg.numAttrs = 2;
+  return cudaSuccess;
+}
+
+// Whether #5-wide's resident walk takes width H on the current device:
+// W_h's slice and the rings within a block's shared memory, and all
+// ceil(H / 20) clusters at once. *held: the clusters the card holds at
+// once.
+cudaError_t walk_fits(int H, bool* fits, int* held) {
+  *fits = false;
+  *held = 0;
+  if (H % kWC || walk_smem(H) > static_cast<size_t>(kSmemMax))
+    return cudaSuccess;
+  WalkLaunch wl;
+  cudaError_t e = walk_launch(H, wl);
+  if (e != cudaSuccess) return e;
+  wl.cfg.numAttrs = 1;  // the occupancy query takes the cluster shape
+  e = cudaOccupancyMaxActiveClusters(held, lstm_wide_bwd_walk_kernel,
+                                     &wl.cfg);
+  *fits = e == cudaSuccess &&
+          wl.cfg.gridDim.x / kQ <= static_cast<unsigned>(*held);
   return e;
 }
 
@@ -601,18 +884,63 @@ E2E_EXPORT int e2e_lstm_wide_fwd(const float* xp, const float* w,
   return cudaGetLastError();
 }
 
+// #5's wide walk at width H on the current device (kernels/lstm_seq.
+// wide_bwd_plan reads it and hands the route back to e2e_lstm_wide_bwd):
+// out = {1 if resident else 0, blocks a cluster, clusters, units a block,
+// shared memory a block in bytes, clusters the card holds at once}.
+E2E_EXPORT int e2e_lstm_wide_bwd_plan(int H, int* out) {
+  if (H < kWC || H % kWC || out == nullptr) return cudaErrorInvalidValue;
+  bool fits = false;
+  int held = 0;
+  const cudaError_t e = walk_fits(H, &fits, &held);
+  if (e != cudaSuccess) return e;
+  out[0] = fits ? 1 : 0;
+  out[1] = kQ;
+  out[2] = (H + kWU * kQ - 1) / (kWU * kQ);
+  out[3] = kWU;
+  out[4] = static_cast<int>(walk_smem(H));
+  out[5] = held;
+  return cudaSuccess;
+}
+
 // #5's wide form. w_h [H,4H], the forward's h and c [T,B,H], x_proj
 // [T,B,4H], the output gradient g [T,B,H], mask [T,B] or NULL -> dx
-// [T,B,4H] (dgates); scratch dc, dht [B,H] and part [4,B,H]. H is a
-// multiple of 32.
+// [T,B,4H] (dgates); scratch dc, dht [B,H]. H is a multiple of 32.
+// resident: the route as e2e_lstm_wide_bwd_plan gave it (1: scratch a [2,
+// ceil(B/128), 4H, 128] copy of dgates; 0: streamed, scratch [4,B,H]
+// partial sums). Two launches: the gate pre-activations (dw.cuh's tiled
+// product over all T*B rows, into dx), then the walk.
 E2E_EXPORT int e2e_lstm_wide_bwd(const float* w, const float* h,
                                  const float* c, const float* xp,
                                  const float* g, const float* mask, float* dx,
-                                 float* dc, float* dht, float* part, int T,
-                                 int B, int H, cudaStream_t stream) {
-  if (H < kWC || H % kWC || B < 1 || T < 1) return cudaErrorInvalidValue;
-  BwdArgs p{w, h, c, xp, g, mask, dx, dc, dht, part, T, B, H};
-  const int tiles = max(H / kUL * ((T * B + kTR - 1) / kTR),
-                        4 * (H / kWC) * ((B + kTR - 1) / kTR));
-  return launch_cooperative(lstm_wide_bwd_kernel, p, tiles, stream);
+                                 float* dc, float* dht, float* scratch, int T,
+                                 int B, int H, int resident,
+                                 cudaStream_t stream) {
+  if (H < kWC || H % kWC || B < 1 || T < 1 || B > 65535 ||
+      scratch == nullptr)
+    return cudaErrorInvalidValue;
+  e2e::GateArgs ga{};
+  ga.job[0] = {h, w, xp, dx};
+  ga.R = T * B;
+  ga.K = H;
+  ga.N = 4 * H;
+  ga.shift = B;
+  e2e::lstm_bwd_gates_kernel<<<dim3((ga.R + e2e::kTM - 1) / e2e::kTM,
+                                    (ga.N + e2e::kTN - 1) / e2e::kTN, 1),
+                               256, 0, stream>>>(ga);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  BwdArgs p{w, h, c, g, mask, dx, dc, dht, scratch, T, B, H};
+  if (!resident)
+    return launch_cooperative(lstm_wide_bwd_kernel, p,
+                              4 * (H / kWC) * ((B + kTR - 1) / kTR), stream);
+  if (walk_smem(H) > static_cast<size_t>(kSmemMax))
+    return cudaErrorInvalidValue;
+  WalkLaunch wl;
+  e = walk_launch(H, wl);
+  if (e != cudaSuccess) return e;
+  wl.cfg.stream = stream;
+  e = cudaLaunchKernelEx(&wl.cfg, lstm_wide_bwd_walk_kernel, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }

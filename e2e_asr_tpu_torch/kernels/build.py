@@ -41,7 +41,8 @@ _SIGNATURES = {
     "e2e_lstm_seq_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "e2e_lstm_wide_fwd": [_P] * 5 + [_I] * 5 + [_P, _P],
     "e2e_lstm_wide_fwd_plan": [_I, _P],
-    "e2e_lstm_wide_bwd": [_P] * 10 + [_I, _I, _I, _P],
+    "e2e_lstm_wide_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "e2e_lstm_wide_bwd_plan": [_I, _P],
     "e2e_gru_fwd": [_P, _I, _I, _I, _I, _P],
     "e2e_gru_bwd": [_P, _I, _I, _I, _I, _I, _P],
     "e2e_dec_train_fwd": [_P, _I, _P, _P],
@@ -58,7 +59,8 @@ _SIGNATURES = {
     "e2e_transducer_fwd": [_P] * 6 + [_I, _I, _I, _P],
     "e2e_transducer_bwd": [_P] * 9 + [_I, _I, _I, _P],
     "e2e_ctc_prefix_scan": [_P] * 9 + [_I, _I, _I, _P],
-    "e2e_mhsa_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "e2e_mhsa_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "e2e_mhsa_plan": [_I] * 4 + [_P],
 }
 _lock = threading.Lock()
 

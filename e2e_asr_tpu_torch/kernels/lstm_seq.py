@@ -28,9 +28,17 @@ sequence and brings h_{t-1} in through cp.async rings (1056 <= H <= 1280
 on the H100), and "streamed" (wider), where each
 tile of 8 units x 128 rows streams its W_h columns and h_{t-1} through
 shared memory every step. #5's wide form recomputes the gates of every
-step in one pass, then walks time in reverse: dh_{t-1} = dgates_t W_h^T
-split by gate into four partial sums, then step t-1's cell backward, two
-grid barriers a step. Both take H in multiples of 32.
+step in one tiled product (dw.cuh's), then walks time in reverse by one of
+two routes, which the CUDA source chooses by H and the card
+(`wide_bwd_plan` reads it; counted in `WIDE_BWD_ROUTES`): "resident"
+(1056 <= H <= 1280 on the H100), where clusters of 2 blocks keep W_h's
+rows of their 20 units over half the gate columns each in shared memory,
+each block multiplies its columns of dgates_t into a partial dh_{t-1} for
+the cluster's units and the cluster adds the two through distributed
+shared memory, one grid barrier a step; and "streamed" (wider), where
+dh_{t-1} = dgates_t W_h^T is split by gate into four partial sums on tiles
+that stream W_h, then step t-1's cell backward, two grid barriers a step.
+Both take H in multiples of 32.
 
 Autograd: `lstm_seq` on inputs that need a gradient runs the training form
 inside `_LSTMSeq`, whose backward is kernel #5 or its wide form on the card
@@ -56,7 +64,35 @@ WIDE_TRAIN_LAUNCHES = 0
 WIDE_BWD_LAUNCHES = 0      # #5's wide form
 WIDE_FWD_ROUTES = {"resident": 0, "streamed": 0}   # #4's launches by route
 WIDE_FWD_LAST_PLAN: dict = {}   # the plan of #4's last launch
-WIDE_ROW_TILE = 128   # rows of a tile of the resident route's h scratch
+WIDE_BWD_ROUTES = {"resident": 0, "streamed": 0}   # #5-wide's, by route
+WIDE_BWD_LAST_PLAN: dict = {}   # the plan of #5-wide's last launch
+WIDE_ROW_TILE = 128   # rows of a tile of the resident routes' scratch
+
+
+def parse_wide_fwd_plan(values) -> dict:
+    """#4's plan as e2e_lstm_wide_fwd_plan writes it: {resident, blocks,
+    units a block, shared memory a block in bytes}."""
+    resident, blocks, units, smem = (int(x) for x in values)
+    return {"route": "resident" if resident else "streamed",
+            "blocks": blocks, "units": units, "smem": smem}
+
+
+def parse_wide_bwd_plan(values) -> dict:
+    """#5-wide's plan as e2e_lstm_wide_bwd_plan writes it: {resident,
+    blocks a cluster, clusters, units a block, shared memory a block in
+    bytes, clusters of that size the card holds at once}."""
+    resident, cluster, clusters, units, smem, held = (int(x) for x in values)
+    return {"route": "resident" if resident else "streamed",
+            "cluster": cluster, "clusters": clusters, "units": units,
+            "smem": smem, "held": held}
+
+
+def _plan(fn: str, n: int, H: int, device_index: int):
+    out = (ctypes.c_int * n)()
+    with torch.cuda.device(device_index):
+        err = getattr(build.library(), fn)(H, out)
+    build.check(err, fn)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,12 +101,19 @@ def wide_fwd_plan(H: int, device_index: int) -> dict:
     it (e2e_lstm_wide_fwd_plan): "resident" where `blocks` blocks of
     `units` units each keep W_h's columns of their units in `smem` bytes of
     shared memory in one wave, else "streamed"."""
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device_index):
-        err = build.library().e2e_lstm_wide_fwd_plan(H, out)
-    build.check(err, "lstm_seq_wide_plan")
-    return {"route": "resident" if out[0] else "streamed",
-            "blocks": out[1], "units": out[2], "smem": out[3]}
+    return parse_wide_fwd_plan(_plan("e2e_lstm_wide_fwd_plan", 4, H,
+                                     device_index))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_bwd_plan(H: int, device_index: int) -> dict:
+    """#5-wide's walk at width H on the card, as csrc/lstm_seq_wide.cu
+    chooses it (e2e_lstm_wide_bwd_plan): "resident" where `clusters`
+    clusters of `cluster` blocks, each keeping its share of W_h in `smem`
+    bytes of shared memory, fit one wave (the card holds `held` such
+    clusters at once), else "streamed"."""
+    return parse_wide_bwd_plan(_plan("e2e_lstm_wide_bwd_plan", 6, H,
+                                     device_index))
 
 
 def lstm_seq_reference(x_proj, w_h, mask=None, save_c: bool = False):
@@ -162,26 +205,36 @@ def lstm_bwd_wide(w_h, h, c, x_proj, g, mask=None):
 
 
 def lstm_bwd_wide_dx(w_h, h, c, x_proj, g, mask=None):
-    """One launch of #5's wide form on CUDA tensors: dx_proj [T,B,4H]."""
-    global WIDE_BWD_LAUNCHES
+    """One launch of #5's wide form on CUDA tensors (the gate pre-pass and
+    the walk of the route csrc/lstm_seq_wide.cu chooses): dx_proj
+    [T,B,4H]."""
+    global WIDE_BWD_LAUNCHES, WIDE_BWD_LAST_PLAN
     if h.device.type != "cuda":
         raise ValueError(f"lstm_bwd_wide: unsupported device {h.device}")
     dev = h.device
     T, B, H = lstm_bidir._check_bwd(w_h, h, c, x_proj, g, mask, dev,
                                     "lstm_bwd_wide")
     _check_wide(H)
+    plan = wide_bwd_plan(H, dev.index)
+    resident = plan["route"] == "resident"
     dx = torch.empty(T, B, 4 * H, device=dev)
     dc, dht = torch.empty(B, H, device=dev), torch.empty(B, H, device=dev)
-    part = torch.empty(4, B, H, device=dev)
+    # resident: dgates transposed by row tile, two step parities; streamed:
+    # the four partial sums of dh.
+    scratch = (torch.empty(2, -(-B // WIDE_ROW_TILE), 4 * H, WIDE_ROW_TILE,
+                           device=dev) if resident
+               else torch.empty(4, B, H, device=dev))
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.e2e_lstm_wide_bwd(
             w_h.data_ptr(), h.data_ptr(), c.data_ptr(), x_proj.data_ptr(),
             g.data_ptr(), None if mask is None else mask.data_ptr(),
-            dx.data_ptr(), dc.data_ptr(), dht.data_ptr(), part.data_ptr(), T,
-            B, H, build.stream_ptr(dev))
+            dx.data_ptr(), dc.data_ptr(), dht.data_ptr(), scratch.data_ptr(),
+            T, B, H, int(resident), build.stream_ptr(dev))
     build.check(err, "lstm_bwd_wide")
     WIDE_BWD_LAUNCHES += 1
+    WIDE_BWD_ROUTES[plan["route"]] += 1
+    WIDE_BWD_LAST_PLAN = plan
     return dx
 
 

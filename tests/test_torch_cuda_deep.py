@@ -2,8 +2,10 @@
 their plain PyTorch versions on the card (marker `cuda`; they skip without
 a GPU): #8/#9 and #10 with stacked decoder cells, SimpleProjection,
 ind_softmax, scheduled sampling and dropout (inter-layer masks included);
-#4 in its three forms and #5's wide form at H = 1088, 1280 and 2048; the
-raises for shapes outside a kernel's envelope.
+#4 in its three forms and #5's wide form at the edges of their routes (H =
+1056, 1088, 1280 resident; 1312 and 2048 streamed; B = 1 and 130; T = 1;
+steps where every row is invalid), each case held to the route it takes;
+the raises for shapes outside a kernel's envelope.
 
 No JAX import, so they also run where JAX is not installed:
     pytest --noconftest -m cuda tests/test_torch_cuda*.py
@@ -162,10 +164,26 @@ def test_deep_decoder_envelope_raises(cuda, use_lstm):
             torch.ones(1, S, B, D, device=cuda))
 
 
-# (H, T, B, masked): #4's resident route (1088, 1280; B = 130 takes two row
-# tiles, T = 1 no recurrent product) and its streamed route (2048).
+# (H, T, B, masked): the resident routes of #4 and #5-wide (1056, 1088,
+# 1280; B = 130 takes two row tiles, T = 1 no recurrent product, B = 1 one
+# row) and their streamed routes (1312, 2048). masked: False, True (ragged
+# lengths) or "holes" (ragged, and steps where every row is invalid).
 WIDE = [(1088, 40, 16, True), (1280, 24, 128, True), (1280, 12, 16, False),
-        (2048, 10, 32, True), (1280, 7, 130, True), (1280, 1, 16, False)]
+        (2048, 10, 32, True), (1280, 7, 130, True), (1280, 1, 16, False),
+        (1056, 9, 1, "holes"), (1312, 6, 8, True), (1280, 10, 24, "holes")]
+
+
+def _wide_mask(rng, T, B, masked, device):
+    """None, or a [T, B, 1] validity mask of ragged lengths (row 0 full);
+    with "holes" also steps 1 and T - 2 invalid for every row."""
+    if not masked:
+        return None
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0] = T
+    m = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)
+    if masked == "holes":
+        m[[1, T - 2]] = 0.0
+    return torch.tensor(m[:, :, None], device=device)
 
 
 @pytest.mark.cuda
@@ -176,10 +194,8 @@ def test_wide_lstm_forward_forms(cuda, H, T, B, masked):
     rng = np.random.default_rng(H + T)
     x = _rand(rng, T, B, 4 * H, device=cuda)
     w = _rand(rng, H, 4 * H, scale=1.0 / np.sqrt(H), device=cuda)
-    lens = rng.integers(1, T + 1, size=B)
-    lens[0] = T
-    mask = (torch.tensor((np.arange(T)[:, None] < lens[None, :]).astype(
-        np.float32)[:, :, None], device=cuda) if masked else None)
+    mask = _wide_mask(rng, T, B, masked, cuda)
+    masked = mask is not None
     before = (lstm_seq.WIDE_LAUNCHES, lstm_seq.WIDE_MASKED_LAUNCHES,
               lstm_seq.WIDE_TRAIN_LAUNCHES, lstm_seq.LAUNCHES,
               lstm_seq.MASKED_LAUNCHES, lstm_seq.TRAIN_LAUNCHES)
@@ -205,20 +221,23 @@ def test_wide_lstm_forward_forms(cuda, H, T, B, masked):
 @pytest.mark.parametrize("H,T,B,masked", WIDE)
 def test_wide_lstm_backward(cuda, H, T, B, masked):
     """#5's wide form and the dW matmul beside it against the plain
-    backward, from the plain forward's h and c; through autograd too."""
+    backward, from the plain forward's h and c, on the route its width
+    takes; through autograd too."""
     rng = np.random.default_rng(H * 3 + T)
     x = _rand(rng, T, B, 4 * H, device=cuda)
     w = _rand(rng, H, 4 * H, scale=1.0 / np.sqrt(H), device=cuda)
-    lens = rng.integers(1, T + 1, size=B)
-    lens[0] = T
-    mask = (torch.tensor((np.arange(T)[:, None] < lens[None, :]).astype(
-        np.float32)[:, :, None], device=cuda) if masked else None)
+    mask = _wide_mask(rng, T, B, masked, cuda)
     h, c = lstm_seq.lstm_seq_reference(x, w, mask, save_c=True)
     g = _rand(rng, T, B, H, device=cuda)
     before = lstm_seq.WIDE_BWD_LAUNCHES
+    routes = dict(lstm_seq.WIDE_BWD_ROUTES)
     got = lstm_seq.lstm_bwd_wide(w, h, c, x, g, mask)
     torch.cuda.synchronize()
     assert lstm_seq.WIDE_BWD_LAUNCHES == before + 1
+    route = "resident" if H <= 1280 else "streamed"
+    assert lstm_seq.WIDE_BWD_LAST_PLAN["route"] == route
+    assert {k: v - routes[k] for k, v in lstm_seq.WIDE_BWD_ROUTES.items()} == {
+        r: int(r == route) for r in routes}
     want = lstm_bidir.lstm_bwd_reference(w, h, c, x, g, mask)
     _close(got, want, names=["dx", "dw"])
     xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -242,6 +261,26 @@ def test_wide_forward_plan_covers_every_unit_once(cuda):
         assert (blocks - 1) * units < H <= blocks * units, (H, plan)
         if plan["route"] == "resident":
             assert plan["smem"] <= 232448 and blocks <= sms, (H, plan)
+        if sms == 132:
+            assert plan["route"] == ("resident" if H <= 1280
+                                     else "streamed"), H
+
+
+@pytest.mark.cuda
+def test_wide_backward_plan_covers_every_unit_once(cuda):
+    """#5-wide's walk as csrc/lstm_seq_wide.cu chooses it, for every width
+    it accepts up to 8192: the resident route's clusters of 2 blocks own
+    every unit once, all in one wave, each block within 232,448 B of
+    shared memory; on the H100 W_h stays resident from H = 1056 up to 1280
+    and is streamed above."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for H in range(1056, 8193, 32):
+        plan = lstm_seq.wide_bwd_plan(H, cuda.index or 0)
+        if plan["route"] == "resident":
+            q, n, u = plan["cluster"], plan["clusters"], plan["units"]
+            assert q == 2 and u == 10, (H, plan)
+            assert (n - 1) * q * u < H <= n * q * u, (H, plan)
+            assert n <= plan["held"] and plan["smem"] <= 232448, (H, plan)
         if sms == 132:
             assert plan["route"] == ("resident" if H <= 1280
                                      else "streamed"), H

@@ -4,14 +4,18 @@ self-attention core) against its plain PyTorch version on the card (marker
     pytest --noconftest -m cuda tests/test_torch_cuda_mhsa.py
 
 Shapes: the serving burst's buckets (B=8, T' = 16, 32, 64, nh 4, hd 128)
-and `-test` at a batch of 64 (T' = 47), with and without relmat, ragged
-lengths and a zero-length row; also several query tiles and key chunks
-(T=100), the two-group head width 256 and small odd ones. Tolerance 1e-5
-absolute on out and probs (float32 sums in another order). Through the
-encoder: with E2E_ASR_MHSA_KERNEL set, inference launches #18 once a block
-and gives the states of the plain chain; training never launches it. Also
-the raises before any launch: head widths, alignment, and 'Wide layers'
-above H = 1024 for kernels A and #6.
+and `-test` at a batch of 64 (T' = 47, 48), with and without relmat,
+ragged lengths and a zero-length row; also T' = 1 and 17, blocks of 16
+and 64 query rows (B=40, T'=33 at hd 256 beside the shapes above), the
+chunked route past the on-chip width (T = 65, 100: several query tiles
+and key chunks), the two-group head width 256 and small odd ones. Both
+forms: the out-only form's out is bit for bit the probs form's, and each
+form moves its own launch counter alone. Tolerance 1e-5 absolute on out
+and probs (float32 sums in another order). Through the encoder: with
+E2E_ASR_MHSA_KERNEL set, inference launches #18's out-only form once a
+block and gives the states of the plain chain; training never launches
+it. Also the raises before any launch: head widths, alignment, and 'Wide
+layers' above H = 1024 for kernels A and #6.
 """
 import numpy as np
 import pytest
@@ -47,17 +51,33 @@ def case(dev, B, nh, T, hd, rel, seed=0):
     return q, k, v, pad, relmat
 
 
+def counts():
+    return mhsa.LAUNCHES, mhsa.PROBS_LAUNCHES, dict(mhsa.ROUTES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,nh,T,hd", [
     (8, 4, 16, 128), (8, 4, 32, 128), (8, 4, 64, 128), (64, 4, 47, 128),
-    (3, 2, 100, 64), (2, 2, 40, 256), (5, 3, 9, 8), (2, 1, 33, 4)])
+    (64, 4, 48, 128), (4, 4, 1, 128), (3, 4, 17, 128), (2, 2, 65, 128),
+    (40, 4, 33, 256), (3, 2, 100, 64), (2, 2, 40, 256),
+    (5, 3, 9, 8), (2, 1, 33, 4)])
 @pytest.mark.parametrize("rel", [False, True])
 def test_kernel_matches_plain(cuda, B, nh, T, hd, rel):
+    """Both forms against the plain chain, on the route T takes; the
+    out-only form's out bit for bit the probs form's."""
     args = case(cuda, B, nh, T, hd, rel, seed=B * T + hd)
-    before = mhsa.LAUNCHES
+    route = "onchip" if T <= 64 else "chunked"
+    before = counts()
     out, probs = mhsa.attend(*args, return_probs=True)
     torch.cuda.synchronize()
-    assert mhsa.LAUNCHES == before + 1
+    assert counts() == (before[0], before[1] + 1, {
+        r: n + (r == route) for r, n in before[2].items()})
+    assert mhsa.LAST_PLAN["route"] == route
+    only = mhsa.attend(*args)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, {
+        r: n + 2 * (r == route) for r, n in before[2].items()})
+    assert torch.equal(only, out)
     want_out, want_probs = mhsa.attend_reference(*args)
     torch.testing.assert_close(out, want_out, atol=TOL, rtol=0)
     torch.testing.assert_close(probs, want_probs, atol=TOL, rtol=0)
@@ -73,10 +93,10 @@ def test_autograd_form_on_the_card(cuda):
     g = torch.randn(4, 4, 24, 32, device=cuda)
     leaves = [a.clone().requires_grad_(True) for a in args]
     ref = [a.clone().requires_grad_(True) for a in args]
-    before = mhsa.LAUNCHES
+    before = counts()
     got = torch.autograd.grad(mhsa.attend(*leaves), leaves[:3] + [leaves[4]],
                               g)
-    assert mhsa.LAUNCHES == before + 1
+    assert counts()[:2] == (before[0], before[1] + 1)   # the probs form
     want = torch.autograd.grad(mhsa.attend_reference(*ref)[0],
                                ref[:3] + [ref[4]], g)
     for a, b in zip(got, want):
@@ -105,9 +125,9 @@ def test_encoder_gate(cuda, monkeypatch, rel, conv):
         monkeypatch.delenv("E2E_ASR_MHSA_KERNEL", raising=False)
         plain, _, _ = encoder.apply(params, cfg, x, lens, layers)
         monkeypatch.setenv("E2E_ASR_MHSA_KERNEL", "1")
-        before = mhsa.LAUNCHES
+        before = counts()
         fused, _, _ = encoder.apply(params, cfg, x, lens, layers)
-        assert mhsa.LAUNCHES == before + 4
+        assert counts()[:2] == (before[0] + 4, before[1])  # out-only
     for d in (3, 4):
         torch.testing.assert_close(fused[d], plain[d], atol=1e-4, rtol=0)
     before = mhsa.LAUNCHES
@@ -117,8 +137,31 @@ def test_encoder_gate(cuda, monkeypatch, rel, conv):
 
 
 @pytest.mark.cuda
+def test_plan_routes_by_width(cuda):
+    """csrc/mhsa.cu keeps T <= 64 on chip and chunks wider T, for every
+    head width it takes, within a block's shared memory; on chip a block
+    takes 64 query rows where B * nh blocks fill the card and T' > 32,
+    else 16: 16 at the serving shape (128 blocks at B=8, nh=4, T'=64), 64
+    at `-test`'s (one block a head at B=64, T'=48)."""
+    dev = cuda.index or 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for hd in range(4, 257, 4):
+        for B, nh, T in ((8, 4, 1), (3, 4, 17), (64, 4, 48), (8, 4, 64),
+                         (200, 4, 64), (200, 4, 32), (8, 4, 65), (2, 2, 200)):
+            plan = mhsa.plan(B, nh, T, hd, dev)
+            assert plan["route"] == ("onchip" if T <= 64 else "chunked")
+            assert plan["keys"] == 64 and plan["smem"] <= 232448
+            if plan["route"] == "onchip":
+                assert plan["rows"] == (64 if B * nh >= sms and T > 32
+                                        else 16)
+    if sms == 132:
+        assert mhsa.plan(8, 4, 64, 128, dev)["rows"] == 16
+        assert mhsa.plan(64, 4, 48, 128, dev)["rows"] == 64
+
+
+@pytest.mark.cuda
 def test_limits_raise_before_any_launch(cuda):
-    before = mhsa.LAUNCHES
+    before = counts()
     for hd in (6, 260):
         with pytest.raises(ValueError, match="head width"):
             mhsa.attend(*case(cuda, 2, 2, 8, hd, False))
@@ -130,7 +173,7 @@ def test_limits_raise_before_any_launch(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         mhsa.attend(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                     pad, relmat)
-    assert mhsa.LAUNCHES == before
+    assert counts() == before
 
 
 @pytest.mark.cuda

@@ -209,6 +209,18 @@ def test_launch_counters_route_by_width(H, form, monkeypatch):
         [0, 1] if H > lstm_seq.WIDE else [1, 0])
 
 
+def test_plan_readers_parse_a_plan():
+    """wide_fwd_plan's and wide_bwd_plan's readers of what
+    e2e_lstm_wide_fwd_plan and e2e_lstm_wide_bwd_plan write."""
+    assert lstm_seq.parse_wide_fwd_plan([1, 128, 10, 229376]) == {
+        "route": "resident", "blocks": 128, "units": 10, "smem": 229376}
+    assert lstm_seq.parse_wide_bwd_plan([1, 2, 64, 10, 229376, 66]) == {
+        "route": "resident", "cluster": 2, "clusters": 64, "units": 10,
+        "smem": 229376, "held": 66}
+    assert lstm_seq.parse_wide_bwd_plan([0, 0, 0, 10, 0, 31])["route"] == (
+        "streamed")
+
+
 @pytest.mark.parametrize("H", [1025, 1088])
 def test_lm_scan_wider_than_1024_matches_the_oracle(H):
     """core/rnn.lstm_scan at a width past #3's cap (its wrapper takes the

@@ -188,6 +188,27 @@ def test_autograd_form_matches_the_pallas_vjp(kernel_jax, case):
                                    atol=1e-4 * np.abs(w).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_out_is_the_same_with_and_without_probs(case):
+    """`attend` without return_probs (the out-only form on the card) gives
+    the out of return_probs, on the CPU's plain version, launching
+    nothing."""
+    q, k, v, pad, relmat, _ = (t(a) for a in kernel_case(*CASES[case]))
+    before = mhsa.LAUNCHES, mhsa.PROBS_LAUNCHES
+    out, _ = mhsa.attend(q, k, v, pad, relmat, return_probs=True)
+    assert torch.equal(mhsa.attend(q, k, v, pad, relmat), out)
+    assert (mhsa.LAUNCHES, mhsa.PROBS_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("values,route", [((1, 16, 64, 80128), "onchip"),
+                                          ((1, 64, 64, 100864), "onchip"),
+                                          ((0, 32, 64, 33792), "chunked")])
+def test_plan_reader_parses_a_plan(values, route):
+    """mhsa.plan's reader of what e2e_mhsa_plan writes."""
+    assert mhsa.parse_plan(values) == {"route": route, "rows": values[1],
+                                       "keys": 64, "smem": values[3]}
+
+
 def test_zero_length_row_is_uniform():
     q, k, v, pad, relmat, _ = (t(a) for a in kernel_case(3, 4, 8, 8, True))
     out, probs = mhsa.attend(q, k, v, pad, relmat, return_probs=True)

@@ -18,8 +18,9 @@ chip_smoke.py's):
    - `graph_ms` (plain version only): CUDA-event time per call when the
      calls are replayed from one captured CUDA graph, i.e. without the
      host's launch cost;
-   - for #18, `library_device_us` and `library_event_ms`: the same two
-     for scaled_dot_product_attention on the same out;
+   - #18 in its out-only form (`mhsa`) and its probs form (`mhsa_probs`);
+     for the out-only form, `library_device_us` and `library_event_ms`:
+     the same two for scaled_dot_product_attention on the same out;
 2. one batch of 8 through the beam decoder per bucket (128/256/512 frames,
    beam 4, 120 steps): `wall_ms` on the host clock around the decode and a
    device sync; `busy_ms`, the union of the intervals of all device
@@ -123,28 +124,6 @@ def busy_us(events: list[dict]) -> float:
     return total
 
 
-def graph_ms(fn, n: int) -> float:
-    """Per-call time of n calls of fn replayed from one CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def kernel_cases(params, cfg, dev) -> dict:
     """name -> (kernel call, plain call, CUDA kernel name, calls to time,
     one PyTorch call of the same function or None)."""
@@ -192,20 +171,24 @@ def kernel_cases(params, cfg, dev) -> dict:
         lambda: beam_select.beam_select(*d_args),
         lambda: beam_select.beam_select_reference(*d_args),
         "beam_select_kernel", 50, None)
-    # #18 at the burst's largest bucket (T' = 64, B = 8, nh 4, hd 128);
-    # the library call is scaled_dot_product_attention with the padding
-    # bias as its additive mask (out alone, not the probs).
+    # #18 at the burst's largest bucket (T' = 64, B = 8, nh 4, hd 128),
+    # its out-only form and its probs form; the library call is
+    # scaled_dot_product_attention with the padding bias as its additive
+    # mask (out alone, not the probs), beside the out-only form.
     lens = np.array([64, 60, 51, 40, 33, 20, 9, 1])
     pad = torch.tensor(np.where(np.arange(64)[None, :] < lens[:, None], 0.0,
                                 -1e30).astype(np.float32), device=dev)
     m_args = (rand(8, 4, 64, 128), rand(8, 4, 64, 128), rand(8, 4, 64, 128),
               pad, torch.zeros(4, 64, 64, device=dev))
     mask = (m_args[4][None] + pad[:, None, None, :]).contiguous()
-    cases["mhsa"] = (lambda: mhsa.attend(*m_args, return_probs=True),
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases["mhsa"] = (lambda: mhsa.attend(*m_args),
                      lambda: mhsa.attend_reference(*m_args),
-                     "mhsa_fwd_kernel", 50,
-                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                         *m_args[:3], attn_mask=mask))
+                     "mhsa_onchip_kernel", 50,
+                     lambda: sdpa(*m_args[:3], attn_mask=mask))
+    cases["mhsa_probs"] = (lambda: mhsa.attend(*m_args, return_probs=True),
+                           lambda: mhsa.attend_reference(*m_args),
+                           "mhsa_onchip_kernel", 50, None)
     return cases
 
 
@@ -230,7 +213,7 @@ def profile_kernels(params, cfg, dev) -> dict:
                "plain_device_us": sum(e["dur"] for e in ev_p) / n,
                "event_ms": chip_smoke.time_ms(kernel, n),
                "plain_event_ms": chip_smoke.time_ms(plain, n),
-               "plain_graph_ms": graph_ms(plain, n)}
+               "plain_graph_ms": chip_smoke.graph_ms(plain, n)}
         if library is not None:
             ev_l = device_events(library, n, f"{name}_library")
             row["library_device_us"] = sum(e["dur"] for e in ev_l) / n
@@ -330,7 +313,8 @@ OWN_KERNELS = ("lstm_bidir_fwd_kernel", "lstm_bwd_walk_kernel",
                "transducer_fwd_kernel", "transducer_bwd_kernel",
                "ctc_prefix_kernel", "lstm_wide_fwd_kernel",
                "lstm_wide_fwd_resident_kernel", "lstm_wide_bwd_kernel",
-               "mhsa_fwd_kernel")
+               "lstm_wide_bwd_walk_kernel", "mhsa_onchip_kernel",
+               "mhsa_chunked_kernel")
 # PyTorch's own kernels by what they compute (the rest is "other").
 TORCH_KERNELS = (("gemm", "torch_matmul"), ("softmax", "torch_softmax"))
 
