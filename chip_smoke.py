@@ -13,7 +13,8 @@ Phases; any failure exits nonzero and prints no result line:
    both, the bound (the least time the card could take: bytes at 3.35 TB/s
    or float32 operations at 67 TFLOP/s, whichever is larger) and, where one
    PyTorch call computes the same function, that call's time:
-   - serving kernels A, B, C, D at the serving shapes;
+   - serving kernels A, B, C, D at the serving shapes (A beside cuDNN's
+     nn.LSTM forward under torch.inference_mode);
    - training kernels at the train shapes: A's training form and its
      backward (both directions, and one direction with a carry mask) on
      encoder layer 1 (T=384, B=128, H=256; beside cuDNN's nn.LSTM), the
@@ -70,12 +71,13 @@ Phases; any failure exits nonzero and prints no result line:
      deep decoder as #15's cases above; the deep branches of #8/#9 and of
      #10 (`-gru`) at B=128, 47 steps, 48 encoder frames, sampling on every
      other step and dropout with the inter-layer masks;
-   the rows of the redesigned recurrences (A's backward and #5 at both
-   shapes, #4's three forms, #5's wide form) also give their time a step
-   (us_per_step) and the route of the launches they timed, from the plan
-   the wrapper kept (kernel_route: resident or streamed, with the
-   backward's rows a cluster and clusters, #4's blocks, #5-wide's clusters
-   of 2 blocks), and fail unless it is resident (H=256 and 1280);
+   the rows of the redesigned recurrences (#1's two forms, A's backward
+   and #5 at both shapes, #4's three forms, #5's wide form) also give
+   their time a step (us_per_step) and the route of the launches they
+   timed, from the plan the wrapper kept (kernel_route: resident or
+   streamed, with #1's and the backward's rows a cluster, clusters and
+   cluster size, #4's blocks, #5-wide's clusters of 2 blocks), and fail
+   unless it is resident (H=256 and 1280);
    every row with a library time gives its ratio to it in the same run
    (library_ratio); each main path below must take those resident routes
    alone (and #18 its on-chip route);
@@ -538,17 +540,19 @@ class Recorder:
                              else {"kernel_route": route})})
 
 
-def launched_walk(H: int) -> str:
-    """The route of kernel #2 / #5's last launch, from the plan its wrapper
-    kept: the route, the rows a cluster walks and the clusters beside what
-    the card holds at once. Fails unless the walk at H = 256 (the
+def launched_walk(plan: dict, kernel: str, H: int) -> str:
+    """The route of an LSTM walk's last launch (kernel #1, or #2 / #5),
+    from the plan its wrapper kept: the route, the rows a cluster walks and
+    a product lane's rows and threads, the clusters and their size beside
+    what the card holds at once. Fails unless the walk at H = 256 (the
     flagship's width, which every row that reads this has) was resident."""
-    p = lstm_bidir.BWD_LAST_PLAN
-    if H == 256 and p.get("route") != "resident":
-        fail(f"kernel #2 / #5 did not take its resident route at H=256: {p}")
-    return (f"{p['route']}, {p['Rg']} rows x {p['S']} threads a lane, "
-            f"{p['n_dirs'] * p['groups']} clusters of 8 (the card holds "
-            f"{p['clusters']})")
+    if H == 256 and plan.get("route") != "resident":
+        fail(f"kernel {kernel} did not take its resident route at H=256: "
+             f"{plan}")
+    return (f"{plan['route']}, {plan['Rg']} rows a cluster, lanes of "
+            f"{plan.get('RL', plan['Rg'])} rows x {plan['S']} threads, "
+            f"{plan.get('n_dirs', 2) * plan['groups']} clusters of "
+            f"{plan.get('cluster', 8)} (the card holds {plan['clusters']})")
 
 
 def launched_wide(H: int) -> str:
@@ -573,12 +577,18 @@ def launched_wide_bwd(H: int) -> str:
 
 
 def cudnn_lstm_ms(x, lens, H, bidirectional, backward,
-                  rnn=torch.nn.LSTM) -> float:
+                  rnn=torch.nn.LSTM, inference: bool = False) -> float:
     """cuDNN's nn.LSTM (or `rnn`) on the packed batch (same input width,
-    hidden size and lengths): its training forward, or its backward as the
-    time of forward + backward less the forward's. Timed only, as a
-    yardstick."""
+    hidden size and lengths): its training forward, its inference forward
+    (inference: under torch.inference_mode, on a detached input), or its
+    backward as the time of forward + backward less the forward's. Timed
+    only, as a yardstick."""
     lstm = rnn(x.shape[-1], H, bidirectional=bidirectional).to(x.device)
+    if inference:
+        with torch.inference_mode():
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x.detach(), lens.cpu(), enforce_sorted=False)
+            return time_ms(lambda: lstm(packed), 5)
     xg = x.detach().clone().requires_grad_(True)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         xg, lens.cpu(), enforce_sorted=False)
@@ -624,7 +634,9 @@ def check_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_seq_bidir(*a_args),
            lambda: lstm_bidir.lstm_seq_bidir_reference(*a_args), 20, 2,
            (2 * T * B * 2 * H * 4 * H, nbytes(*a_args, *got)),
-           lambda: cudnn_lstm_ms(x, lens, H, True, False))
+           lambda: cudnn_lstm_ms(x, lens, H, True, False, inference=True),
+           steps=T,
+           route=lambda: launched_walk(lstm_bidir.FWD_LAST_PLAN, "#1", H))
 
     # B and C: one decode step over N = 8 rows x 4 beams.
     N, Hd, Henc = 32, dcfg.hidden_size_dec, 2 * cfg.encoder.hidden_size
@@ -732,7 +744,8 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_seq_bidir_train(*a_args),
            lambda: lstm_bidir.lstm_seq_bidir_reference(*a_args, save_c=True),
            5, 1, (2 * lstm_ops, nbytes(*a_args, *fwd)),
-           lambda: cudnn_lstm_ms(x, lens, H, True, False))
+           lambda: cudnn_lstm_ms(x, lens, H, True, False), steps=T,
+           route=lambda: launched_walk(lstm_bidir.FWD_LAST_PLAN, "#1", H))
     h_fw, h_bw, c_fw, c_bw = fwd
     g_fw, g_bw = rand(T, B, H), rand(T, B, H)
     bw_args = (wf, wb, h_fw, c_fw, xf, g_fw, h_bw, c_bw, xb, g_bw, mask)
@@ -749,7 +762,7 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_bidir_bwd(*bw_args), plain_bidir, 5, 1,
            (2 * 3 * lstm_ops, nbytes(*bw_args, *got)),
            lambda: cudnn_lstm_ms(x, lens, H, True, True), steps=T,
-           route=lambda: launched_walk(H))
+           route=lambda: launched_walk(lstm_bidir.BWD_LAST_PLAN, "#2 / #5", H))
     one_args = (wb, h_bw, c_bw, xb, g_bw, mask)
     got = lstm_bidir.lstm_bwd(*one_args)
     record("lstm_bwd", "e2e_asr_tpu_torch/csrc/lstm_bidir_bwd.cu",
@@ -759,7 +772,7 @@ def check_train_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_bwd_reference(*one_args), 5, 1,
            (3 * lstm_ops, nbytes(*one_args, *got)),
            lambda: cudnn_lstm_ms(x, lens, H, False, True), steps=T,
-           route=lambda: launched_walk(H))
+           route=lambda: launched_walk(lstm_bidir.BWD_LAST_PLAN, "#2 / #5", H))
 
 
 def check_dec_train(params, cfg, dev, record: Recorder, seed: int,
@@ -1044,7 +1057,7 @@ def check_lm_kernels(params, cfg, dev, record: Recorder) -> None:
            lambda: lstm_bidir.lstm_bwd_reference(*bw_args), 10, 1,
            (3 * ops, nbytes(*bw_args, *got)),
            lambda: cudnn_lstm_ms(emb_in, lens_cpu, H, False, True), steps=T,
-           route=lambda: launched_walk(H))
+           route=lambda: launched_walk(lstm_bidir.BWD_LAST_PLAN, "#2 / #5", H))
 
 
 def gru_layer_case(params, cfg, dev, rng, T: int, B: int) -> dict:
@@ -1620,7 +1633,8 @@ def decode_rows(gru_decoder: bool) -> tuple[str, str]:
 def zero_launches() -> None:
     for module, counter in COUNTERS.values():
         setattr(module, counter, 0)
-    for routes in (lstm_bidir.BWD_ROUTES, lstm_seq.WIDE_FWD_ROUTES,
+    for routes in (lstm_bidir.FWD_ROUTES, lstm_bidir.BWD_ROUTES,
+                   lstm_seq.WIDE_FWD_ROUTES,
                    lstm_seq.WIDE_BWD_ROUTES, mhsa.ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     dec_train.DEPTHS.clear()
@@ -1636,16 +1650,18 @@ def read_launches(path: str, required) -> dict:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the {path} path")
     # Every LSTM here at or below H = 296 (the flagship's 256) walks its
-    # backward (#2, #5) on the resident route, the 1280-wide LM cell runs
-    # #4 and #5's wide form on their resident routes, and #18 keeps the
-    # encoder's T' <= 64 on chip.
-    routes = {"lstm_bwd": dict(lstm_bidir.BWD_ROUTES),
+    # forward (#1) and backward (#2, #5) on the resident routes, the
+    # 1280-wide LM cell runs #4 and #5's wide form on their resident
+    # routes, and #18 keeps the encoder's T' <= 64 on chip.
+    routes = {"lstm_fwd": dict(lstm_bidir.FWD_ROUTES),
+              "lstm_bwd": dict(lstm_bidir.BWD_ROUTES),
               "lstm_seq_wide": dict(lstm_seq.WIDE_FWD_ROUTES),
               "lstm_bwd_wide": dict(lstm_seq.WIDE_BWD_ROUTES),
               "mhsa": dict(mhsa.ROUTES)}
     print(f"routes in the {path} run: {json.dumps(routes)}", flush=True)
     resident = {"mhsa": "onchip"}
-    for kernel, rows in (("lstm_bwd", ("lstm_bidir_bwd", "lstm_bwd")),
+    for kernel, rows in (("lstm_fwd", ("lstm_bidir", "lstm_bidir_train")),
+                         ("lstm_bwd", ("lstm_bidir_bwd", "lstm_bwd")),
                          ("lstm_seq_wide", ("lstm_seq_wide_train",)),
                          ("lstm_bwd_wide", ("lstm_bwd_wide",)),
                          ("mhsa", ("mhsa",))):

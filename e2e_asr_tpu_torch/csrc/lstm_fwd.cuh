@@ -1,6 +1,6 @@
-// The forward chain of one LSTM direction over one batch row, shared by
-// kernel A (lstm_bidir.cu: both directions of a BiLSTM layer, one launch)
-// and kernel #3 (lstm_seq.cu: one direction).
+// The forward chain of one LSTM direction over one batch row: kernel #3's
+// (lstm_seq.cu: one direction). Kernel A's forward (lstm_bidir.cu) ran it
+// too, until it became a cluster walk with W_h in shared memory.
 //
 // One block runs one chain: it loops over all T steps itself (blocks run in
 // no order on the GPU, so the time loop cannot be the grid). Thread (s, u)

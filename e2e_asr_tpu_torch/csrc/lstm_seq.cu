@@ -14,11 +14,11 @@
 // W_h (1 MiB f32 at H=256), which does not fit a block's shared memory, from
 // L2: about 1 MiB of L2 traffic per batch row and step against 2 MFLOP.
 //
-// Design: kernel A's chain for one direction (csrc/lstm_fwd.cuh): one block
+// Design: the chain of csrc/lstm_fwd.cuh for one direction: one block
 // per batch row, grid (B), the time loop inside the block, h in shared
 // memory, c in registers, the depth of the W_h product split over 4 thread
 // slices per unit. At the LM task's B=128 its 128 chains run in one wave on
-// the 132 SMs (kernel A's 2B chains take two).
+// the 132 SMs.
 #include "lstm_fwd.cuh"
 
 namespace {

@@ -34,8 +34,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes of every C entry point (restype is int: a cudaError_t).
 _SIGNATURES = {
-    "e2e_lstm_bidir_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "e2e_lstm_bidir_fwd_train": [_P] * 9 + [_I, _I, _I, _P],
+    "e2e_lstm_bidir_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "e2e_lstm_bidir_fwd_train": [_P] * 9 + [_I] * 5 + [_P],
+    "e2e_lstm_bidir_fwd_plan": [_I, _I, _P],
     "e2e_lstm_bwd": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
     "e2e_lstm_bwd_plan": [_I, _I, _I, _P],
     "e2e_lstm_seq_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

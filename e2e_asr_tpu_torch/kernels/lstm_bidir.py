@@ -8,28 +8,32 @@ launch) and `_bwd_seq` (one direction with an optional carry mask).
 
 Bound on the H100: the recurrence. Each of the T steps needs the whole
 previous h, so a chain is serial in time, and at the flagship width
-(H=256) every step reads all of W_h, [256, 1024] f32 = 1 MiB per direction,
-about 2 MFLOP per batch row. W_h is larger than a block's 227 KB of shared
-memory, so the forward reads it through L2 every step: it is bound by one
-SM's L2 bandwidth, about 1 MiB per step.
+(H=256) every step multiplies the rows' h by all of W_h, [256, 1024] f32 =
+1 MiB per direction, about 2 MFLOP per batch row.
 
-Design: the forward is one block per chain (batch row x direction, 2B
-blocks), the time loop inside the block, h in shared memory and c in
-registers. Each hidden unit's four gate columns of W_h are read by 4
-threads, each over a quarter of the reduction depth, so that 4x more loads
-are in flight; the quarters meet in shared memory (two __syncthreads per
-step). The backward (see the CUDA source) computes every step's gate
-pre-activations in one tiled product, then walks time in reverse with a
-cluster of 8 blocks per group of batch rows of a direction (20 rows at
-layer 1): W_h split over the cluster's shared memory by units (the
-"resident" route, H <= 296) or streamed from a re-laid copy each step (the
-"streamed" route, wider); each block multiplies its slice of dgates by its
-own columns of W_h into a share of dh for every unit, and after one cluster
-barrier a step sums its units' shares through distributed shared memory;
-dW_h = sum h_{t-1}^T dgates is a tiled reduction over the T*B rows. The
-CUDA source chooses the route and the rows (`bwd_plan` reads them);
-`BWD_ROUTES` counts the routes taken and `BWD_LAST_PLAN` keeps the plan of
-the last launch.
+Design: the forward walks time with a cluster of 8 blocks per group of
+batch rows of a direction (20 rows at layer 1; 16 blocks and 4 rows at
+the serving shape): each block keeps its own units' gate columns of W_h in
+shared memory for the whole walk (the "resident" route, H <= 320) or
+streams them in every step (the "streamed" route, wider), gathers h_{t-1}
+of every unit from its peers through distributed shared memory,
+multiplies, runs the cell with c in registers and publishes its slice of
+h_t; one cluster barrier a step. Each gate's sum keeps the depth slices
+and order of the one-block chain it replaced, so it gives that chain's
+bits.
+The CUDA source chooses the route, the cluster size and the rows
+(`fwd_plan` reads them); `FWD_ROUTES` counts the routes taken and
+`FWD_LAST_PLAN` keeps the plan of the last launch. The backward (see the
+CUDA source) computes every step's gate pre-activations in one tiled
+product, then walks time in reverse with the same clusters of 8 blocks
+(20 rows at layer 1): W_h split over the cluster's shared memory by units
+(the "resident" route, H <= 296) or streamed from a re-laid copy each step
+(the "streamed" route, wider); each block multiplies its slice of dgates
+by its own columns of W_h into a share of dh for every unit, and after one
+cluster barrier a step sums its units' shares through distributed shared
+memory; dW_h = sum h_{t-1}^T dgates is a tiled reduction over the T*B
+rows. `bwd_plan` reads the backward's route and rows; `BWD_ROUTES` counts
+them and `BWD_LAST_PLAN` keeps the plan of the last launch.
 
 Semantics kept from the reference: the backward direction runs on the
 time-flipped input, where padding leads, and carries its state through steps
@@ -58,12 +62,41 @@ BWD_SINGLE_LAUNCHES = 0    # backward, one direction
 # Backward launches by the walk's route (`bwd_plan`), both forms together.
 BWD_ROUTES = {"resident": 0, "streamed": 0}
 BWD_LAST_PLAN: dict = {}   # the last backward launch's plan and n_dirs
-# The widest layer the forward and backward kernels take: a block holds one
-# thread per unit (csrc/lstm_bidir.cu); the backward's streamed walk takes
-# up to the same width (csrc/lstm_bidir_bwd.cu).
+# Forward launches by the walk's route (`fwd_plan`), both forms together.
+FWD_ROUTES = {"resident": 0, "streamed": 0}
+FWD_LAST_PLAN: dict = {}   # the last forward launch's plan
+# The widest layer the forward and backward kernels take: the streamed
+# walks of both (csrc/lstm_bidir.cu, csrc/lstm_bidir_bwd.cu) keep h of a
+# cluster's rows in shared memory up to this width.
 MAX_H = 1024
 _PLAN_KEYS = ("resident", "Rg", "groups", "U", "S", "thr", "smem",
               "clusters")
+
+
+def _read_plan(fn: str, keys: tuple, *args) -> dict:
+    """The plan a CUDA source's plan function writes, as a dict whose
+    "resident" flag becomes "route"."""
+    out = (ctypes.c_int * len(keys))()
+    err = getattr(build.library(), fn)(*args, out)
+    build.check(err, fn)
+    plan = dict(zip(keys, out))
+    plan["route"] = "resident" if plan.pop("resident") else "streamed"
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(H: int, B: int, device_index: int) -> dict:
+    """The forward walk's plan on the card, as csrc/lstm_bidir.cu chooses
+    it (e2e_lstm_bidir_fwd_plan): the route ("resident": a block keeps its
+    own gate columns of W_h in shared memory; "streamed": it brings them in
+    every step), `cluster` blocks a cluster (16 where 4 rows a cluster put
+    every cluster of the launch on the card at once, else 8), Rg rows a
+    cluster walks in `groups` row groups, U units a block, RL rows and S
+    threads a product lane, thr threads and smem bytes of shared memory a
+    block, and the clusters of the plan the card holds at once."""
+    with torch.cuda.device(device_index):
+        return _read_plan("e2e_lstm_bidir_fwd_plan",
+                          _PLAN_KEYS + ("cluster", "RL"), H, B)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,13 +107,8 @@ def bwd_plan(H: int, B: int, n_dirs: int, device_index: int) -> dict:
     them in every step), Rg rows a cluster walks in `groups` row groups, U
     units a block, S threads a product lane, thr threads and smem bytes of
     shared memory a block, and the clusters the card holds at once."""
-    out = (ctypes.c_int * len(_PLAN_KEYS))()
     with torch.cuda.device(device_index):
-        err = build.library().e2e_lstm_bwd_plan(H, B, n_dirs, out)
-    build.check(err, "lstm_bwd_plan")
-    plan = dict(zip(_PLAN_KEYS, out))
-    plan["route"] = "resident" if plan.pop("resident") else "streamed"
-    return plan
+        return _read_plan("e2e_lstm_bwd_plan", _PLAN_KEYS, H, B, n_dirs)
 
 
 def check_width(H: int, name: str = "lstm_seq_bidir") -> None:
@@ -168,25 +196,41 @@ def _check_forward(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw):
     return dev, T, B, H
 
 
+def fwd_cuda(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw,
+             save_c: bool = False):
+    """One launch of the forward walk on the card, on the plan the source
+    chooses (`fwd_plan`): (h_fw, h_bw), and with save_c also (c_fw, c_bw),
+    each [T,B,H]."""
+    global LAUNCHES, TRAIN_LAUNCHES, FWD_LAST_PLAN
+    dev, T, B, H = _check_forward(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw,
+                                  mask_bw)
+    plan = fwd_plan(H, B, dev.index)
+    out = torch.empty(4 if save_c else 2, T, B, H, device=dev)
+    ptrs = [x_proj_fw.data_ptr(), x_proj_bw.data_ptr(), w_h_fw.data_ptr(),
+            w_h_bw.data_ptr(), mask_bw.data_ptr(),
+            *[o.data_ptr() for o in out]]
+    lib = build.library()
+    fn = lib.e2e_lstm_bidir_fwd_train if save_c else lib.e2e_lstm_bidir_fwd
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, T, B, H, plan["cluster"], plan["Rg"],
+                 build.stream_ptr(dev))
+    build.check(err, "lstm_seq_bidir_train" if save_c else "lstm_seq_bidir")
+    if save_c:
+        TRAIN_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    FWD_ROUTES[plan["route"]] += 1
+    FWD_LAST_PLAN = dict(plan)
+    return tuple(out.unbind(0))
+
+
 def lstm_seq_bidir_train(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw):
     """The training form: (h_fw, h_bw, c_fw, c_bw), each [T,B,H]."""
-    global TRAIN_LAUNCHES
     if x_proj_fw.device.type == "cpu":
         return lstm_seq_bidir_reference(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw,
                                         mask_bw, save_c=True)
-    dev, T, B, H = _check_forward(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw,
-                                  mask_bw)
-    out = torch.empty(4, T, B, H, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.e2e_lstm_bidir_fwd_train(
-            x_proj_fw.data_ptr(), x_proj_bw.data_ptr(), w_h_fw.data_ptr(),
-            w_h_bw.data_ptr(), mask_bw.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), T, B, H,
-            build.stream_ptr(dev))
-    build.check(err, "lstm_seq_bidir_train")
-    TRAIN_LAUNCHES += 1
-    return tuple(out.unbind(0))
+    return fwd_cuda(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw,
+                    save_c=True)
 
 
 def _bwd_cuda(dirs, T, B, H, dev):
@@ -300,7 +344,6 @@ def lstm_seq_bidir(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw,
     an input needs a gradient, the training form runs and the backward
     kernel gives the gradients.
     """
-    global LAUNCHES
     if drop_seeds is not None or drop_keep < 1.0 or bf16_matmul:
         raise NotImplementedError(
             "lstm_seq_bidir: in-kernel dropout and bf16 matmuls are not "
@@ -311,15 +354,4 @@ def lstm_seq_bidir(x_proj_fw, x_proj_bw, w_h_fw, w_h_bw, mask_bw,
         return _LSTMBidir.apply(*args)
     if x_proj_fw.device.type == "cpu":
         return lstm_seq_bidir_reference(*args)
-    dev, T, B, H = _check_forward(*args)
-    h_fw = torch.empty(T, B, H, device=dev)
-    h_bw = torch.empty(T, B, H, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.e2e_lstm_bidir_fwd(
-            x_proj_fw.data_ptr(), x_proj_bw.data_ptr(), w_h_fw.data_ptr(),
-            w_h_bw.data_ptr(), mask_bw.data_ptr(), h_fw.data_ptr(),
-            h_bw.data_ptr(), T, B, H, build.stream_ptr(dev))
-    build.check(err, "lstm_seq_bidir")
-    LAUNCHES += 1
-    return h_fw, h_bw
+    return fwd_cuda(*args)

@@ -16,7 +16,7 @@ Bound on the H100: the recurrence. Each of the T steps needs the whole
 previous h, and every step reads all of W_h ([256, 1024] f32 = 1 MiB at
 the flagship LM's width, 26.2 MB at H = 1280) from L2.
 
-Design: #3 is kernel A's chain for one direction (`csrc/lstm_fwd.cuh`):
+Design: #3 is one chain a row for one direction (`csrc/lstm_fwd.cuh`):
 one block per batch row, the time loop inside the block, h in shared memory
 and c in registers; at the LM task's B=128 the 128 chains fit one wave on
 the 132 SMs. It caps H at 1024 (a block's threads). #4 is one persistent

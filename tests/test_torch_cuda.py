@@ -38,8 +38,17 @@ def _rand(rng, *shape, scale=1.0, device="cpu"):
                         device=device)
 
 
+def fwd_route(H: int) -> str:
+    """The forward walk's route by width (csrc/lstm_bidir.cu): a block's
+    gate columns of W_h stay in shared memory up to H = 320."""
+    return "resident" if H <= 320 else "streamed"
+
+
+# (T, B, H): both routes of the forward walk (H = 40, 256 | 400, 1024; 400
+# and 40 leave the last blocks' units part padding).
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(64, 5, 40), (16, 8, 256)])
+@pytest.mark.parametrize("T,B,H", [(64, 5, 40), (16, 8, 256), (16, 8, 400),
+                                   (12, 3, 1024)])
 def test_lstm_bidir_kernel(cuda, T, B, H):
     rng = np.random.default_rng(0)
     lens = rng.integers(1, T + 1, size=B)
@@ -51,9 +60,14 @@ def test_lstm_bidir_kernel(cuda, T, B, H):
             _rand(rng, H, 4 * H, scale=0.1, device=cuda),
             torch.tensor(mask[:, :, None], device=cuda)]
     before = lstm_bidir.LAUNCHES
+    routes = dict(lstm_bidir.FWD_ROUTES)
     got = lstm_bidir.lstm_seq_bidir(*args)
     torch.cuda.synchronize()
     assert lstm_bidir.LAUNCHES == before + 1
+    route = fwd_route(H)
+    assert lstm_bidir.FWD_LAST_PLAN["route"] == route
+    assert {k: lstm_bidir.FWD_ROUTES[k] - routes[k] for k in routes} == {
+        r: int(r == route) for r in routes}
     want = lstm_bidir.lstm_seq_bidir_reference(*args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)

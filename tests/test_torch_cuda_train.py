@@ -21,6 +21,7 @@ from e2e_asr_tpu_torch.core import checkpoint
 from e2e_asr_tpu_torch.kernels import dec_train, lstm_bidir
 from e2e_asr_tpu_torch.models import seq2seq
 from e2e_asr_tpu_torch.train import step
+from test_torch_cuda import fwd_route
 
 torch.set_num_threads(1)
 
@@ -57,8 +58,11 @@ def _lstm_inputs(rng, T, B, H, dev):
 
 
 # (T, B, H, masked): both sides of the backward's resident / streamed route
-# (H = 40, 256 | 320, 1024), ragged row groups (B = 1, 17, 128; B = 300
-# walks 32 rows a cluster, one thread a product lane), T = 1, the
+# (H = 40, 256 | 320, 1024) and of the forward's (H <= 320 | 1024; at H = 4
+# and 40 some blocks of a cluster own padding units or none), ragged row
+# groups (B = 1, 17, 128; B = 300 walks 32 rows a cluster in the backward,
+# one thread a product lane; B = 5 leaves the forward's second row group
+# past B), T = 1, the
 # one-direction form with and without its carry mask, and T*B = 8,454,015
 # rows, more than 65535 of the gate product's 128-row tiles.
 LSTM_CASES = [(64, 5, 40, True), (16, 8, 256, True), (12, 17, 256, False),
@@ -73,9 +77,14 @@ def test_lstm_training_forward_and_backward(cuda, T, B, H, masked):
     rng = np.random.default_rng(0)
     xf, xb, wf, wb, mask = _lstm_inputs(rng, T, B, H, cuda)
     before = lstm_bidir.TRAIN_LAUNCHES
+    fwd_routes = dict(lstm_bidir.FWD_ROUTES)
     fwd = lstm_bidir.lstm_seq_bidir_train(xf, xb, wf, wb, mask)
     torch.cuda.synchronize()
     assert lstm_bidir.TRAIN_LAUNCHES == before + 1
+    route = fwd_route(H)
+    assert lstm_bidir.FWD_LAST_PLAN["route"] == route
+    assert {k: lstm_bidir.FWD_ROUTES[k] - fwd_routes[k]
+            for k in fwd_routes} == {r: int(r == route) for r in fwd_routes}
     want = lstm_bidir.lstm_seq_bidir_reference(xf, xb, wf, wb, mask,
                                                save_c=True)
     for g, w in zip(fwd, want):
@@ -146,6 +155,69 @@ def test_lstm_backward_plan_covers_every_unit_and_row_once(cuda):
             assert plan["S"] == 1 or plan["route"] == "resident"
             if H <= 256 and B == 128:
                 assert n_dirs * groups <= plan["clusters"], (H, plan)
+
+
+# B = 8 walks clusters of 16 blocks at the flagship width, B = 33 clusters
+# of 8 (test_lstm_forward_plan_covers_every_unit_and_row_once).
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 33])
+@pytest.mark.parametrize("H", [256, 400])
+def test_lstm_forward_is_bitwise_deterministic(cuda, H, B):
+    """Two calls of either forward form on the same inputs give the same
+    bits (h, and c in the training form), on either route (H = 256
+    resident, 400 streamed) and on clusters of 16 or 8 blocks: each gate's
+    sum runs over the depth in a fixed order, with no atomics."""
+    rng = np.random.default_rng(H + B)
+    args = _lstm_inputs(rng, 9, B, H, cuda)
+    for save_c in (False, True):
+        first = lstm_bidir.fwd_cuda(*args, save_c=save_c)
+        second = lstm_bidir.fwd_cuda(*args, save_c=save_c)
+        torch.cuda.synchronize()
+        plan = lstm_bidir.FWD_LAST_PLAN
+        assert plan["route"] == fwd_route(H)
+        if H == 256:
+            assert plan["cluster"] == (16 if B == 8 else 8), plan
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_lstm_forward_plan_covers_every_unit_and_row_once(cuda):
+    """The forward walk's plan as csrc/lstm_bidir.cu chooses it, for every
+    H the forward accepts: the blocks of a cluster (16 where 4 rows a
+    cluster put the launch on the card at once, else 8) own ceil(H /
+    blocks) units each, so every unit and gate column once; the row groups
+    cover B once; a block fits 232,448 B of shared memory and holds its
+    product lanes (RL rows x 1 unit each: one row where that fits, else 4)
+    within 640 threads, S threads a lane as the one-block chain it replaced
+    sliced the depth (4 up to H = 256); W_h stays resident exactly up to H
+    = 320; every cluster of the launch fits the card at once at the
+    flagship's B = 128 up to H = 256, and at H = 256 the serving shape's B
+    = 8 walks 4 rows a cluster of 16 blocks, B = 33 and 128 clusters of
+    8."""
+    index = cuda.index or 0
+    for H in range(1, lstm_bidir.MAX_H + 1):
+        for B in (1, 8, 17, 33, 128, 4096, 65535):
+            plan = lstm_bidir.fwd_plan(H, B, index)
+            n = plan["cluster"]
+            U, Rg, groups = plan["U"], plan["Rg"], plan["groups"]
+            lanes = Rg // plan["RL"] * U
+            assert n == 8 or (n == 16 and Rg == 4 and 2 * groups
+                              <= plan["clusters"]), (H, B, plan)
+            assert n * (U - 1) < H <= n * U, (H, plan)
+            assert Rg % 4 == 0 and (groups - 1) * Rg < B <= groups * Rg
+            assert plan["smem"] <= 232448, (H, B, plan)
+            assert plan["S"] * lanes <= plan["thr"] <= 640, (H, B, plan)
+            one_a_lane = (plan["S"] * Rg * U + 31) // 32 * 32 <= 640
+            assert plan["RL"] == (1 if one_a_lane else 4), (H, B, plan)
+            assert plan["thr"] % 32 == 0
+            assert plan["S"] == max(1, min(4, 1024 // (-(-H // 32) * 32)))
+            assert plan["route"] == fwd_route(H)
+            if H <= 256 and B == 128:
+                assert 2 * groups <= plan["clusters"], (H, plan)
+            if H == 256 and B in (8, 33, 128):
+                assert n == (16 if B == 8 else 8), plan
+            if H == 256 and B in (8, 128):
+                assert Rg == (4 if B == 8 else 20), plan
 
 
 def _dec_inputs(rng, dev, S=7, B=12, G=40, D=40, M=24, E=48, A=20, V=11,
